@@ -7,3 +7,9 @@ launch/dryrun.py (a subprocess in tests) requests 512 host devices.
 import jax
 
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the port's CUDA "
+        "kernels); skips without one")
