@@ -1,9 +1,9 @@
 """Balanced Sinkhorn solvers for the entropic-OT subproblem of each
 mirror-descent step.
 
-Reference: ``repro/core/sinkhorn.py`` (balanced log and kernel modes; the
-unbalanced, low-rank and differentiable one-step maps belong to later
-slices).
+Reference: ``repro/core/sinkhorn.py`` (balanced log and kernel modes, and
+the factored plan's log-domain Dykstra projection and mirror step; the
+unbalanced and differentiable one-step maps belong to later slices).
 
 Conventions: plan γ_ip = exp((f_i + g_p − C_ip)/ε); marginals Σ_p γ = μ,
 Σ_i γ = ν.  Log mode is the default (the paper's ε = 0.002 underflows the
@@ -28,8 +28,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import lr_step, sinkhorn_step
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import sinkhorn_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,3 +256,148 @@ def solve_adaptive(cost, mu, nu, eps, iters: int, chunk: int, tol,
     plan, a, b, err, used = sinkhorn_kernel_chunked(
         cost, mu, nu, eps, iters, chunk, tol, a0)
     return plan, eps * torch.log(a), eps * torch.log(b), err, used
+
+
+# ---------------------------------------------------------------------------
+# low-rank coupling subproblem (Scetbon et al. 2021): one mirror step on the
+# (Q, R, g) factors, solved by log-domain Dykstra iterations
+# ---------------------------------------------------------------------------
+
+def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
+                       backend: str = "torch", cost_dtype: str = "f32"):
+    """state0, sweep, residual for the log-domain Dykstra projection.
+
+    ``backend`` (resolved by `repro_torch.kernels.ops.
+    resolve_lowrank_backend`) selects block 1 of the sweep: ``"kernel"``
+    runs each factor side as ONE call of the B5 kernel (the row duals and
+    the column LSE at those duals in one pass over the (N, r) log-kernel,
+    read as bfloat16 under ``cost_dtype="bf16"``); ``"torch"`` runs the same
+    function as the kernel's plain version, the reference's XLA
+    expressions.  The (r,)-sized dual algebra and the residual are plain
+    PyTorch under either backend.
+    """
+    ft = mu.dtype
+    log_mu = _safe_log(mu)
+    log_nu = _safe_log(nu)
+    rank = lk_g.shape[-1]
+    zr = torch.zeros((rank,), dtype=ft, device=mu.device)
+    state0 = (torch.zeros_like(mu), torch.zeros_like(nu), zr, zr,
+              lk_g.to(ft), zr, zr, zr, zr)
+
+    if kops.resolve_lowrank_backend(backend, mu.device) == "kernel":
+        # cast once per projection, not once per sweep
+        lkq_k = kops.cast_cost(lk_q.contiguous(), cost_dtype)
+        lkr_k = kops.cast_cost(lk_r.contiguous(), cost_dtype)
+
+        def block1(g1, g2):
+            f1, cq = kops.lr_dykstra_half(lkq_k, g1, log_mu, cost_dtype)
+            f2, cr = kops.lr_dykstra_half(lkr_k, g2, log_nu, cost_dtype)
+            return f1, f2, cq, cr
+    else:
+        def block1(g1, g2):
+            f1, cq = lr_step.dykstra_half_plain(lk_q[None], g1[None],
+                                                log_mu[None])
+            f2, cr = lr_step.dykstra_half_plain(lk_r[None], g2[None],
+                                                log_nu[None])
+            return f1[0], f2[0], cq[0], cr[0]
+
+    def sweep(s):
+        _f1, _f2, g1, g2, h, w_gi, w_gp, w_q, w_r = s
+        # block 1: exact row scalings (zero-mass rows pinned to −inf) and
+        # the floored g
+        f1, f2, cq, cr = block1(g1, g2)
+        hp = h + w_gi
+        h = torch.maximum(hp, log_floor)
+        w_gi = hp - h
+        # block 2: couple the column marginals of Q and R to g
+        gq = g1 + cq
+        gr = g2 + cr
+        hn = ((h + w_gp) + (gq + w_q) + (gr + w_r)) / 3.0
+        g1 = g1 + (hn - gq)
+        g2 = g2 + (hn - gr)
+        w_q = (gq + w_q) - hn
+        w_r = (gr + w_r) - hn
+        w_gp = (h + w_gp) - hn
+        return f1, f2, g1, g2, hn, w_gi, w_gp, w_q, w_r
+
+    def residual(s, _old):
+        f1, f2, g1, g2 = s[0], s[1], s[2], s[3]
+        row_q = torch.exp(f1 + sinkhorn_step._lse(g1[None, :] + lk_q, 1))
+        row_r = torch.exp(f2 + sinkhorn_step._lse(g2[None, :] + lk_r, 1))
+        return (row_q - mu).abs().sum() + (row_r - nu).abs().sum()
+
+    return state0, sweep, residual
+
+
+def lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters: int, chunk: int, tol,
+                   log_floor, backend: str = "torch",
+                   cost_dtype: str = "f32"):
+    """Log-domain Dykstra projection onto the low-rank coupling polytope
+
+        {Q 1_r = μ} ∩ {R 1_r = ν} ∩ {g ≥ floor}          (block 1)
+        ∩ {Qᵀ 1_M = g} ∩ {Rᵀ 1_N = g}                     (block 2)
+
+    (Scetbon–Cuturi 2021 LR-Sinkhorn, Algorithm 2, in log space).  The
+    iterate is held as duals: log Q = lk_q ⊕ f1 ⊕ g1, log R = lk_r ⊕ f2 ⊕ g2,
+    log g = h; the g-floor and block 2's coupled pieces carry Dykstra
+    corrections, and block 2's joint projection is the geometric mean of
+    its three pieces.  Zero-mass atoms stay exactly 0 throughout.
+
+    Runs on `_chunked_loop`: ``tol=0`` performs exactly ``iters`` sweeps;
+    ``tol>0`` stops at the first post-chunk check whose summed L1
+    row-marginal gap (Q vs μ plus R vs ν) is ≤ tol.  Returns
+    (q, r, g, err, iters_used).
+    """
+    state0, sweep, residual = _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu,
+                                                 log_floor, backend,
+                                                 cost_dtype)
+    s, it, _ = _chunked_loop(state0, sweep, residual, iters, chunk, tol)
+    f1, f2, g1, g2, h = s[0], s[1], s[2], s[3], s[4]
+    q = torch.exp(lk_q + f1[:, None] + g1[None, :])
+    r = torch.exp(lk_r + f2[:, None] + g2[None, :])
+    return q, r, torch.exp(h), residual(s, None), it
+
+
+def _lr_prox_kernels(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma):
+    """The KL-prox kernels of one factored mirror step:
+
+        log K = (1 − γ'ε)·log X − γ'·∇_X F,    γ' = γ / ‖∇F‖∞,
+
+    with the ∞-norm over mass-carrying rows only and zero-mass rows pinned
+    to −inf.  ε and γ enter here, folded into the kernels the Dykstra sweep
+    reads."""
+    ft = mu.dtype
+    eps = torch.as_tensor(eps, dtype=ft, device=mu.device)
+    gamma = torch.as_tensor(gamma, dtype=ft, device=mu.device)
+    zero = torch.zeros((), dtype=ft, device=mu.device)
+    gq_m = torch.where((mu > 0)[:, None], grad_q, zero)
+    gr_m = torch.where((nu > 0)[:, None], grad_r, zero)
+    norm = torch.maximum(gq_m.abs().max(),
+                         torch.maximum(gr_m.abs().max(), grad_g.abs().max()))
+    gamma_eff = gamma / torch.clamp_min(norm, torch.finfo(ft).tiny)
+    # 1 − γ'ε < 0 would flip the prox into ascent on the entropy term;
+    # clamping to [0, 1] degrades gracefully to the pure-gradient kernel
+    coef = torch.clamp(1.0 - gamma_eff * eps, 0.0, 1.0)
+    neg_inf = torch.full((), -torch.inf, dtype=ft, device=mu.device)
+    one = torch.ones((), dtype=ft, device=mu.device)
+    lk_q = torch.where(q > 0, coef * torch.log(torch.where(q > 0, q, one))
+                       - gamma_eff * gq_m, neg_inf)
+    lk_r = torch.where(r > 0, coef * torch.log(torch.where(r > 0, r, one))
+                       - gamma_eff * gr_m, neg_inf)
+    lk_g = coef * _safe_log(g) - gamma_eff * grad_g
+    return lk_q, lk_r, lk_g
+
+
+def lr_mirror_step(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma,
+                   iters: int, chunk: int, tol, g_floor: float,
+                   backend: str = "torch", cost_dtype: str = "f32"):
+    """One mirror-descent step on the factored plan (Q, R, g): the KL-prox
+    kernels of `_lr_prox_kernels` projected back onto the coupling polytope
+    by `lr_dykstra_log`.  Returns (q, r, g, err, iters_used) with err the
+    post-projection L1 row-marginal gap."""
+    lk_q, lk_r, lk_g = _lr_prox_kernels(q, r, g, grad_q, grad_r, grad_g,
+                                        mu, nu, eps, gamma)
+    log_floor = torch.log(torch.tensor(g_floor, dtype=mu.dtype,
+                                       device=mu.device))
+    return lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters, chunk, tol,
+                          log_floor, backend, cost_dtype)

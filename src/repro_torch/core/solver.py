@@ -44,7 +44,7 @@ class SolveControls:
     eps_init: torch.Tensor
     anneal_decay: torch.Tensor
     inner_loosen: torch.Tensor
-    lr_gamma: torch.Tensor   # factored-plan step size (not ported yet)
+    lr_gamma: torch.Tensor   # factored-plan mirror step size γ
 
     @classmethod
     def make(cls, eps, tol=0.0, eps_init=None, anneal_decay=0.5,

@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("sinkhorn_step.cu", "fgc_scan.cu")
+SOURCES = ("sinkhorn_step.cu", "fgc_scan.cu", "lr_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \

@@ -145,9 +145,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 
 def test_unported_surfaces_raise():
+    """The factored plan is ported (tests/test_torch_lowrank.py): what it
+    refuses is a dense-plan warm start, and its kernels on the CPU."""
     tg, _, mu, nu = _case("Grid1D", 10, 1)
-    with pytest.raises(NotImplementedError, match="lowrank"):
+    with pytest.raises(ValueError, match="gamma0"):
         core.entropic_gw(tg, tg, mu, nu, core.GWConfig(plan="lowrank"),
+                         gamma0=np.outer(mu, nu), device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        core.entropic_gw(tg, tg, mu, nu,
+                         core.GWConfig(plan="lowrank",
+                                       lowrank_backend="kernel"),
                          device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         core.entropic_gw(tg, tg, mu, nu,

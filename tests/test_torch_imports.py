@@ -28,4 +28,4 @@ def test_no_jax_or_reference_import(path):
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "gw.py", "ops.py", "sinkhorn_step.py",
-            "fgc_scan.py", "convert.py"} <= names
+            "fgc_scan.py", "lr_step.py", "convert.py"} <= names

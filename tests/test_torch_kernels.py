@@ -178,5 +178,7 @@ def test_resolve_sinkhorn_backend_refuses():
         ops.resolve_sinkhorn_backend("kernel", "cpu")
     with pytest.raises(ValueError, match="unknown"):
         ops.resolve_sinkhorn_backend("pallas", "cpu")
-    with pytest.raises(NotImplementedError):
-        ops.resolve_lowrank_backend("auto")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.resolve_lowrank_backend("kernel", "cpu")
+    with pytest.raises(ValueError, match="unknown lowrank backend"):
+        ops.resolve_lowrank_backend("xla", "cpu")
