@@ -8,13 +8,15 @@ result line:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, and the build of every kernel from
-   ``src/repro_torch/kernels/csrc`` for ``sm_90a`` (seconds, registers).
+   ``src/repro_torch/kernels/csrc`` for ``sm_90a`` (seconds; registers and
+   spills of each kernel).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (8192 × 8192 and 8192 × 1 for B1–B4; N = 10⁶, c = 5,
-   r = 16 for B5–B7) and dtypes, plus zero-mass rows and columns, an
-   all-masked leading block of columns, four lanes with four different ε,
-   r = 64 and a ragged N.  Each line prints the measured difference beside
-   its tolerance and the reason for it.
+   path's shapes (8192 × 8192 and 8192 × 1 for B1–B4, and Run B's 4096²
+   f64 and rows that are not 16-byte aligned, 8192 × 8191, for B1/B2;
+   N = 10⁶, c = 5, r = 16 for B5–B7) and dtypes, plus zero-mass rows and
+   columns, an all-masked leading block of columns, four lanes with four
+   different ε, r = 64 and a ragged N.  Each line prints the measured
+   difference beside its tolerance and the reason for it.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
    of the FGC kernels against the dense oracle, Run A (``Grid1D(8192)``,
    the paper's §4.1 settings, f32 and f64), Run B (``Grid2D(64)``, f64,
@@ -27,7 +29,8 @@ result line:
    card.  The launch counts are set to 0 just before each path and read
    just after.
 4. Times: each kernel (CUDA events) beside its bound and its plain
-   version's time.
+   version's time; the half-steps also at Run B's 4096² f64, and B3 at
+   Run B's (64, 262144).
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +56,7 @@ N_BIG = 8192
 N_LR = 1_000_000          # the factored plan's main path: 10⁶-point clouds
 C_LR, R_LR = 5, 16        # exact sqeuclidean factors of 3-D points, rank 16
 N_RAGGED = 999_983        # a prime: no multiple of any block's rows
+N_RUN_B = 4096            # Run B's Grid2D(64): a 4096² cost
 
 
 class SmokeFailure(Exception):
@@ -88,13 +92,13 @@ def build_kernels(build) -> None:
         f"({build.build_dir().relative_to(ROOT)})")
     for stem in libs:
         log = build.build_dir() / f"{stem}.log"
-        lines = log.read_text().splitlines() if log.is_file() else []
-        regs = [int(piece.split("Used")[-1].split()[0]) for line in lines
-                for piece in line.split(",") if "registers" in piece]
-        spill = sum(int(piece.split()[0]) for line in lines
-                    for piece in line.split(",") if "bytes spill" in piece)
-        say(f"  {stem}: max {max(regs) if regs else 'n/a'} registers a "
-            f"thread, {spill} spill bytes over all instantiations")
+        regs = build.kernel_registers(log.read_text() if log.is_file()
+                                      else "")
+        say(f"  {stem}: max {max((r for _, r, _ in regs), default='n/a')} "
+            f"registers a thread, {sum(b for _, _, b in regs)} spill bytes "
+            f"over all instantiations; " + ", ".join(
+                f"{k} {r}" + (f" (spills {b} B)" if b else "")
+                for k, r, b in regs))
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +134,20 @@ def ulp_of(torch, x):
     return torch.nextafter(x, torch.full_like(x, math.inf)) - x
 
 
+def half_step_cases(torch):
+    """(M, N, dual dtype, cost dtype, tag) of the half-steps on the main
+    path: Run A's 8192² in f32, f64 and bf16 C, and Run B's 4096² f64."""
+    return ((N_BIG, N_BIG, torch.float32, torch.float32, "f32"),
+            (N_BIG, N_BIG, torch.float64, torch.float64, "f64"),
+            (N_BIG, N_BIG, torch.float32, torch.bfloat16, "bf16-C/f32"),
+            (N_RUN_B, N_RUN_B, torch.float64, torch.float64, "f64"))
+
+
 def sinkhorn_case(torch, ops, sk, kind, cost, vec, logw, eps, tol_ulp,
-                  label, results, why="the online (max, sumexp) associates "
-                  "the sum otherwise than the plain two-pass logsumexp "
+                  label, results, why="the kernel sums the exponentials a "
+                  "register tile at a time (pairwise, rescaled once a tile) "
+                  "and merges lane, warp and split partials in a fixed tree: "
+                  "another association than the plain two-pass logsumexp "
                   "(ROADMAP's bar)"):
     """One half-step kernel against its plain version.  Differences are
     counted in ulps of the operand scale ε·max(|log w|, |lse|) of the final
@@ -220,11 +235,12 @@ def phase_kernels(torch, ops, sk, fs, gen):
     say("phase 2: kernels against their plain versions on the card")
     dev = "cuda"
     errs = {}
-    m = n = N_BIG
     eps = 2e-3
-    for dt, cdt, tag in ((torch.float32, torch.float32, "f32"),
-                         (torch.float64, torch.float64, "f64"),
-                         (torch.float32, torch.bfloat16, "bf16-C/f32")):
+    # Run A's 8192² in each dtype, Run B's 4096² f64, and rows that are not
+    # 16-byte aligned (N = 8191: the scalar-load instantiation)
+    for m, n, dt, cdt, tag in half_step_cases(torch) + (
+            (N_BIG, N_BIG - 1, torch.float32, torch.float32, "f32"),
+            (N_BIG, N_BIG - 1, torch.float32, torch.bfloat16, "bf16-C/f32")):
         cost = torch.rand((1, m, n), generator=gen, device=dev,
                           dtype=dt).to(cdt)
         g = torch.randn((1, n), generator=gen, device=dev, dtype=dt)
@@ -882,10 +898,7 @@ def phase_times(torch, ops, sk, fs, gen):
         "no yardstick of speed: they repeat the arithmetic in PyTorch ops)")
     dev = "cuda"
     rows = {}
-    m = n = N_BIG
-    for dt, cdt, tag in ((torch.float32, torch.float32, "f32"),
-                         (torch.float64, torch.float64, "f64"),
-                         (torch.float32, torch.bfloat16, "bf16-C/f32")):
+    for m, n, dt, cdt, tag in half_step_cases(torch):
         cost = torch.rand((1, m, n), generator=gen, device=dev,
                           dtype=dt).to(cdt)
         g = torch.randn((1, n), generator=gen, device=dev, dtype=dt)
@@ -902,9 +915,10 @@ def phase_times(torch, ops, sk, fs, gen):
             ms = time_ms(torch, lambda: wrap(cost, vec, logw, e), reps=20)
             pms = time_ms(torch, lambda: plain(cost, vec, logw, e), reps=3)
             b, by = bound_ms(nbytes, flops, str(dt).split(".")[-1])
-            key = f"{'B1' if kind == 'row' else 'B2'} {kind} {tag}"
+            label = f"{'B1' if kind == 'row' else 'B2'} {kind} {tag}"
+            key = label if m == N_BIG else f"{label} C{m}x{n}"
             rows[key] = (ms, pms, b, by)
-            say(f"  {key} C{m}x{n}: {ms:.5f} ms, bound {b:.5f} ms "
+            say(f"  {label} C{m}x{n}: {ms:.5f} ms, bound {b:.5f} ms "
                 f"({by}), {b / ms:.1%} of bound; plain {pms:.5f} ms")
         del cost
     for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
@@ -926,6 +940,20 @@ def phase_times(torch, ops, sk, fs, gen):
                 rows[key] = (ms, pms, b, by)
                 say(f"  {key} p={p}: {ms:.5f} ms, bound {b:.5f} ms ({by}), "
                     f"{b / ms:.1%} of bound; plain {pms:.5f} ms")
+    # B3 at Run B's own shape: Grid2D(64) sweeps one 64-long axis of the
+    # unfolded (64, 64, 4096) plan, that is (64, 262144) columns
+    x = torch.randn((64, 64 * N_RUN_B), generator=gen, device=dev,
+                    dtype=torch.float64)
+    for p in (1, 2):
+        ms = time_ms(torch, lambda: ops.fgc_apply_dtilde(x, p), reps=20)
+        pms = time_ms(torch, lambda: fs.apply_dtilde_plain(x, p), reps=1,
+                      warmup=0)
+        b, by = bound_ms(2 * x.numel() * x.element_size(),
+                         2.0 * (p + 1) * (p + 2) * x.numel(), "float64")
+        key = f"B3 dtilde f64 x{x.shape[0]}x{x.shape[1]} p={p}"
+        rows[key] = (ms, pms, b, by)
+        say(f"  {key} (Run B's shape): {ms:.5f} ms, bound {b:.5f} ms "
+            f"({by}), {b / ms:.1%} of bound; plain {pms:.5f} ms")
     return rows
 
 

@@ -6,7 +6,9 @@ PyTorch headers, so a build takes seconds, not minutes).  The libraries go
 to ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused.  All sources compile in parallel, one ``nvcc``
-process each.  Nothing here runs at import time.
+process each.  Nothing here runs at import time.  ptxas's report of each
+build is kept beside its library; `kernel_registers` reads the registers
+and spills of every kernel from it.
 
 No ``--use_fast_math``: the Sinkhorn kernels divide by ε in IEEE arithmetic,
 as the reference does.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -99,3 +102,45 @@ def library(stem: str) -> ctypes.CDLL:
         if stem not in _libs:
             _libs[stem] = ctypes.CDLL(str(build_all()[stem]))
         return _libs[stem]
+
+
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|[fd]|Lb[01]E|Li(\d+)E|.")
+_TEMPLATE_TEXT = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64",
+                  "Lb1E": "vector", "Lb0E": "scalar"}
+
+
+def kernel_name(mangled: str) -> str:
+    """`row_kernel<f32,f32,vector>` from an Itanium-mangled kernel name:
+    the length-prefixed identifier followed by its template arguments (the
+    length may follow other digits, as in a namespace's hash)."""
+    for start in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[start:])
+        if not digits:
+            continue
+        begin = start + digits.end()
+        end = begin + int(digits.group())
+        ident = mangled[begin:end]
+        if not (ident.isidentifier() and mangled[end:end + 1] == "I"):
+            continue
+        args, pos = [], end + 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            tok = _TEMPLATE_ARG.match(mangled, pos)
+            args.append(tok.group(1) or _TEMPLATE_TEXT.get(tok.group(),
+                                                            tok.group()))
+            pos = tok.end()
+        return f"{ident}<{','.join(args)}>"
+    return mangled
+
+
+def kernel_registers(text: str) -> list[tuple[str, int, int]]:
+    """[(kernel, registers, spill-store bytes)] from ``ptxas -v`` output."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spill = kernel_name(m.group(1)), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out

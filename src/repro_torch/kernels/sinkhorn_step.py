@@ -10,9 +10,15 @@ Reference: ``repro/kernels/sinkhorn_step.py``.  Replaces
 
 Every function here takes B lanes: cost (B, M, N), vectors (B, ·) and one ε
 per lane, (B,).  The single-problem path calls them with B = 1.  The CUDA
-source is ``csrc/sinkhorn_step.cu``; its note says how the sequential
-reduction axis of the TPU kernels became a loop inside one block.  What
-bounds a half-step on the card is the bytes of C, read once.
+source is ``csrc/sinkhorn_step.cu``.  Both kernels take the reference's
+online (max, sumexp) a register tile at a time, with C copied ahead into
+shared memory by 16-byte asynchronous copies: the row kernel gives each row
+one warp and shares each segment of g among a block's rows; the column
+kernel splits M over blocks (`col_split`), writes one partial a column and
+block to scratch, and a second launch merges the splits in a fixed order.
+What bounds a half-step on the card is the issue of one IEEE division and
+one ``exp`` an element, just above the bytes of C in f32 and well above
+them in f64.
 
 The plain versions are the same function in PyTorch ops: the max-shifted
 logsumexp of ``jax.scipy.special.logsumexp`` (the shift is 0 where the max is
@@ -28,7 +34,14 @@ import torch
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64",
               torch.bfloat16: "bf16"}
-MAX_LANES = 65535          # gridDim.y
+MAX_LANES = 65535          # gridDim.y (B1, B2's merge) and gridDim.z (B2)
+#: the column kernel's geometry (``csrc/sinkhorn_step.cu``): a thread takes
+#: 16 bytes of C a row, a block's 8 warps step over 64 rows at most (8 tiles
+#: of up to 8 rows), and the grid aims at COL_BLOCKS_PER_SM blocks an SM (at
+#: least two full waves at the main path's 4096² and 8192²)
+SPLIT_ROWS = 64
+COL_BLOCKS_PER_SM = 8
+MAX_SPLITS = 65535         # gridDim.y
 
 
 def _lse(z, dim):
@@ -49,6 +62,24 @@ def col_update_plain(cost, f, log_nu, eps):
     e = eps[:, None]
     z = (f[:, :, None] - cost.to(f.dtype)) / e[:, :, None]
     return e * (log_nu - _lse(z, 1))
+
+
+def col_split(lanes, m, n, cost_bytes, sms):
+    """The column kernel's split of M over blocks: (splits, split_rows).
+
+    A block covers 32 threads × (16 / cost_bytes) columns and all rows of
+    one split.  The split count aims at COL_BLOCKS_PER_SM·sms blocks over
+    the column tiles and lanes; a split is a multiple of SPLIT_ROWS rows
+    (whole steps of the block's warps in every dtype), and none is
+    empty."""
+    cols = 32 * (16 // cost_bytes)
+    tiles = -(-n // cols)
+    want = max(1, -(-COL_BLOCKS_PER_SM * sms // (tiles * lanes)))
+    split_rows = -(-(-(-m // want)) // SPLIT_ROWS) * SPLIT_ROWS
+    splits = -(-m // split_rows)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"{m} rows need {splits} splits > {MAX_SPLITS}")
+    return splits, split_rows
 
 
 def _check(cost, vec, logw, eps, vec_len, out_len):
@@ -79,25 +110,38 @@ def _check(cost, vec, logw, eps, vec_len, out_len):
 
 
 @functools.cache
-def _entry(name: str):
+def _entry(name: str, n_ptr: int, n_int: int):
     from repro_torch.kernels import build
 
     fn = getattr(build.library("sinkhorn_step"), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(kind, cost, vec, logw, eps, out_len):
     lanes, m, n = cost.shape
     out = torch.empty((lanes, out_len), dtype=vec.dtype, device=cost.device)
     name = f"sinkhorn_{kind}_{_DTYPE_TAG[cost.dtype]}_{_DTYPE_TAG[vec.dtype]}"
-    fn = _entry(name)
+    ptrs = [cost, vec, logw, eps, out]
+    ints = [lanes, m, n]
     with torch.cuda.device(cost.device):
+        if kind == "col":
+            splits, split_rows = col_split(lanes, m, n, cost.element_size(),
+                                           _sms(cost.device))
+            part = torch.empty((2, lanes, splits, n), dtype=vec.dtype,
+                               device=cost.device)
+            ptrs += [part[0], part[1]]
+            ints += [splits, split_rows]
+        fn = _entry(name, len(ptrs), len(ints))
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(cost.data_ptr(), vec.data_ptr(), logw.data_ptr(),
-                eps.data_ptr(), out.data_ptr(), lanes, m, n, stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out

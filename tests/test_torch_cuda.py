@@ -32,8 +32,11 @@ def _gen(seed):
     return g
 
 
-# Half-step tolerance: the kernel's online (max, sumexp) associates the sum
-# differently from the plain two-pass logsumexp, a few ulps of the result.
+# Half-step tolerance: the kernels sum the exponentials a register tile at a
+# time (a pairwise tree, the running sum rescaled once per tile) and merge
+# the partials of warps, lanes and row splits in a fixed tree, where the
+# plain version takes one two-pass logsumexp: another association of the
+# same sum, a few ulps of the result.
 _HALF_TOL = {torch.float32: dict(rtol=2e-6, atol=2e-6),
              torch.float64: dict(rtol=1e-13, atol=1e-14)}
 
@@ -92,6 +95,113 @@ def test_half_step_lanes_and_bf16(dev):
         got = ops.sinkhorn_row_update_batched(c, g, log_mu, eps)
         want = sinkhorn_step.row_update_plain(c, g, log_mu, eps)
         torch.testing.assert_close(got, want, **_HALF_TOL[torch.float32])
+
+
+_HALF_DTYPES = {"f32": (torch.float32, torch.float32),
+                "f64": (torch.float64, torch.float64),
+                "bf16-C": (torch.float32, torch.bfloat16)}
+
+
+def _half_inputs(gen, kind, lanes, m, n, dt, cdt, eps):
+    cost = torch.rand((lanes, m, n), generator=gen, device="cuda",
+                      dtype=dt).to(cdt)
+    vlen, wlen = (n, m) if kind == "row" else (m, n)
+    vec = torch.randn((lanes, vlen), generator=gen, device="cuda", dtype=dt)
+    logw = torch.full((lanes, wlen), -math.log(wlen), device="cuda",
+                      dtype=dt)
+    e = torch.as_tensor(eps, device="cuda", dtype=dt).expand(lanes)
+    return cost, vec, logw, e.contiguous()
+
+
+def _half_pair(kind, cost, vec, logw, eps):
+    got = getattr(sinkhorn_step, f"{kind}_update_cuda")(cost, vec, logw, eps)
+    torch.cuda.synchronize()
+    return got, getattr(sinkhorn_step, f"{kind}_update_plain")(cost, vec,
+                                                               logw, eps)
+
+
+@pytest.mark.parametrize("tag", list(_HALF_DTYPES))
+@pytest.mark.parametrize("n", [1, 3, 7, 4097, 8191])
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_unaligned_rows(dev, tag, n, kind):
+    """Rows that are not 16-byte aligned (odd N; N below one 16-byte
+    vector) take the scalar-load instantiation."""
+    dt, cdt = _HALF_DTYPES[tag]
+    got, want = _half_pair(kind, *_half_inputs(_gen(n), kind, 1, 37, n, dt,
+                                               cdt, 2e-3))
+    torch.testing.assert_close(got, want, **_HALF_TOL[dt])
+
+
+@pytest.mark.parametrize("tag", list(_HALF_DTYPES))
+@pytest.mark.parametrize("m", [1, 7, 4099])
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_ragged_rows(dev, tag, m, kind):
+    """M not a multiple of a row block's rows nor of a split's rows, and
+    M = 1 and 7, below any split count the grid would ask for."""
+    dt, cdt = _HALF_DTYPES[tag]
+    got, want = _half_pair(kind, *_half_inputs(_gen(m), kind, 1, m, 256, dt,
+                                               cdt, 2e-3))
+    torch.testing.assert_close(got, want, **_HALF_TOL[dt])
+
+
+@pytest.mark.parametrize("tag", list(_HALF_DTYPES))
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_three_lanes_ragged(dev, tag, kind):
+    """Three lanes, three ε, at a shape ragged in both axes."""
+    dt, cdt = _HALF_DTYPES[tag]
+    got, want = _half_pair(kind, *_half_inputs(_gen(33), kind, 3, 301, 1029,
+                                               dt, cdt, [0.05, 0.01, 2e-3]))
+    torch.testing.assert_close(got, want, **_HALF_TOL[dt])
+
+
+@pytest.mark.parametrize("which", ["duals", "mass"])
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_all_neg_inf(dev, which, kind):
+    """An all −inf dual vector gives lse = −inf (so +inf out), an all −inf
+    log-mass vector −inf out; never NaN, as the plain version."""
+    cost, vec, logw, eps = _half_inputs(_gen(9), kind, 1, 300, 520,
+                                        torch.float64, torch.float64, 0.01)
+    (vec if which == "duals" else logw).fill_(-math.inf)
+    got, want = _half_pair(kind, cost, vec, logw, eps)
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isinf(got).all()
+
+
+@pytest.mark.parametrize("tag", list(_HALF_DTYPES))
+@pytest.mark.parametrize("m,n", [(1000, 1300), (2048, 2048)])
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_bitwise_repeatable(dev, tag, m, n, kind):
+    """Two launches on the same inputs give the same bits: every merge runs
+    in a fixed order and nothing is atomic."""
+    dt, cdt = _HALF_DTYPES[tag]
+    args = _half_inputs(_gen(m + n), kind, 2, m, n, dt, cdt, [0.01, 2e-3])
+    fn = getattr(sinkhorn_step, f"{kind}_update_cuda")
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("tag", list(_HALF_DTYPES))
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_alignment_changes_no_bit(dev, tag, kind):
+    """A cost whose storage starts one element past a 16-byte boundary runs
+    the scalar-load instantiation; it sums in the same tiles and order as
+    the vector loads of an aligned copy, so the bits agree."""
+    dt, cdt = _HALF_DTYPES[tag]
+    cost, vec, logw, eps = _half_inputs(_gen(21), kind, 2, 300, 1024, dt,
+                                        cdt, 2e-3)
+    flat = torch.empty(cost.numel() + 1, device="cuda", dtype=cdt)
+    shifted = flat[1:].view(cost.shape)
+    shifted.copy_(cost)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    fn = getattr(sinkhorn_step, f"{kind}_update_cuda")
+    got = fn(shifted, vec, logw, eps)
+    want = fn(cost, vec, logw, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

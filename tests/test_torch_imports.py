@@ -1,5 +1,5 @@
-"""Import boundary: the port and its chip smoke script import neither JAX
-nor anything of the reference package ``repro``."""
+"""Import boundary: the port, its chip smoke script and its timing tools
+import neither JAX nor anything of the reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +7,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported(path):
@@ -28,4 +28,5 @@ def test_no_jax_or_reference_import(path):
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "gw.py", "ops.py", "sinkhorn_step.py",
-            "fgc_scan.py", "lr_step.py", "convert.py"} <= names
+            "fgc_scan.py", "lr_step.py", "convert.py",
+            "half_step_times.py"} <= names

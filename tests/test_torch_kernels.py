@@ -8,7 +8,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import sinkhorn_step as jsk
-from repro_torch.kernels import fgc_scan, ops, sinkhorn_step
+from repro_torch.kernels import build, fgc_scan, ops, sinkhorn_step
 
 RNG = np.random.default_rng(11)
 
@@ -182,3 +182,63 @@ def test_resolve_sinkhorn_backend_refuses():
         ops.resolve_lowrank_backend("kernel", "cpu")
     with pytest.raises(ValueError, match="unknown lowrank backend"):
         ops.resolve_lowrank_backend("xla", "cpu")
+
+
+@pytest.mark.parametrize("lanes,m,n,cost_bytes", [
+    (1, 8192, 8192, 4), (1, 8192, 8192, 8), (1, 8192, 8192, 2),
+    (1, 4096, 4096, 8), (1, 1, 5, 4), (1, 7, 8191, 2), (2, 300, 1029, 2),
+    (3, 4099, 257, 4), (4, 1024, 1536, 8), (65535, 3, 2, 8)])
+def test_col_split_covers_rows(lanes, m, n, cost_bytes):
+    """The column kernel's split: whole SPLIT_ROWS steps, every row in
+    exactly one split, no empty split, within the grid's limit."""
+    splits, rows = sinkhorn_step.col_split(lanes, m, n, cost_bytes, 132)
+    assert rows % sinkhorn_step.SPLIT_ROWS == 0
+    assert (splits - 1) * rows < m <= splits * rows
+    assert 1 <= splits <= min(m, sinkhorn_step.MAX_SPLITS)
+
+
+@pytest.mark.parametrize("m,cost_bytes", [
+    (8192, 4), (8192, 8), (8192, 2), (4096, 8)])
+def test_col_split_fills_the_card(m, cost_bytes):
+    """At the main path's square shapes (Runs A and B) the grid holds two
+    full waves of a 132-SM card at the three resident blocks an SM that
+    the kernel's registers allow, each split at least 256 rows."""
+    splits, rows = sinkhorn_step.col_split(1, m, m, cost_bytes, 132)
+    tiles = -(-m // (32 * (16 // cost_bytes)))
+    assert tiles * splits >= 2 * 3 * 132
+    assert rows >= 256
+
+
+def test_col_split_refuses_too_many_splits():
+    with pytest.raises(ValueError, match="splits"):
+        sinkhorn_step.col_split(1, 10 ** 8, 1, 8, 10 ** 6)
+
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN49_GLOBAL__N__a99148b8_16_sinkhorn_step_cu_c36063cb10row_kernelI"
+     "13__nv_bfloat16dLb0EEEvPKT_PKT0_S7_S7_PS5_ii",
+     "row_kernel<bf16,f64,scalar>"),
+    ("_ZN49_GLOBAL__N__a99148b8_16_sinkhorn_step_cu_c36063cb10col_kernelI"
+     "ffLb1EEEvPKT_PKT0_S6_PS4_S7_iii", "col_kernel<f32,f32,vector>"),
+    ("_ZN44_GLOBAL__N__e5c5092b_11_fgc_scan_cu_884757f310fgc_kernelIdLi8EEEv"
+     "PKT_PS1_iib", "fgc_kernel<f64,8>"),
+    ("plain_c_function", "plain_c_function")])
+def test_kernel_name_demangles(mangled, want):
+    assert build.kernel_name(mangled) == want
+
+
+def test_kernel_registers_reads_ptxas():
+    entry = "ptxas info    : Compiling entry function '{}' for 'sm_90a'"
+    log = "\n".join([
+        entry.format("_ZN2_N10col_finishIdEEv"),
+        "ptxas info    : Function properties for _ZN2_N10col_finishIdEEv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 28 registers, used 0 barriers",
+        entry.format("_ZN2_N10row_kernelIddLb0EEEv"),
+        "ptxas info    : Function properties for "
+        "_ZN2_N10row_kernelIddLb0EEEv",
+        "    40 bytes stack frame, 56 bytes spill stores, "
+        "56 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 8192 bytes smem"])
+    assert build.kernel_registers(log) == [
+        ("col_finish<f64>", 28, 0), ("row_kernel<f64,f64,scalar>", 80, 56)]
