@@ -15,7 +15,9 @@ result line:
    f64 and rows that are not 16-byte aligned, 8192 × 8191, for B1/B2;
    N = 10⁶, c = 5, r = 16 for B5–B7) and dtypes, plus zero-mass rows and
    columns, an all-masked leading block of columns, four lanes with four
-   different ε, r = 64 and a ragged N.  Each line prints the measured
+   different ε, r = 64 and a ragged N; B5 also at Runs D and E's shapes
+   (10⁵ rows at r = 8, 16, 32; 8192 rows at r = 16) and twice on the same
+   inputs, which must give the same bits.  Each line prints the measured
    difference beside its tolerance and the reason for it.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
    of the FGC kernels against the dense oracle, Run A (``Grid1D(8192)``,
@@ -27,10 +29,14 @@ result line:
    clouds, f64, growing the rank by restarts) and Run E
    (``Grid1D(8192)``, rank 16, f64), each against the plain path on the
    card.  The launch counts are set to 0 just before each path and read
-   just after.
-4. Times: each kernel (CUDA events) beside its bound and its plain
-   version's time; the half-steps also at Run B's 4096² f64, and B3 at
-   Run B's (64, 262144).
+   just after.  One more Run C f64 solve runs under ``torch.profiler``
+   (CPU and CUDA): the device's busy share over it and the device time of
+   its top kernels.
+4. Times: each kernel (CUDA events, with the card kept busy while the
+   host enqueues, so they time the kernels) beside its bound and its
+   plain version's time; the half-steps also at Run B's 4096² f64, B3 at
+   Run B's (64, 262144), and B5 in f64 at Runs C, D and E's shapes, with
+   L2 warm and flushed.
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,12 +111,19 @@ def build_kernels(build) -> None:
 # timing helpers
 # ---------------------------------------------------------------------------
 
+SLEEP_CYCLES = 20_000_000   # ~10 ms of the card at 1.98 GHz
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Device time a call: the card sleeps while the host enqueues the
+    reps, so the events time the kernels and not the host's issue of them
+    (a B5 launch at 10⁵ rows is shorter than its wrapper's host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -479,6 +492,32 @@ def phase_lowrank_kernels(torch, ops, lr, gen):
         combine_case(torch, ops, lr, a, wm, w, s_, t_, iq, f"B7 {shape}",
                      errs)
         del a, b, q, w
+    # Runs D and E's shapes: 10⁵ rows at the ranks Run D grows through,
+    # and Run E's 8192 rows at rank 16, in f64
+    for n, r in ((100_000, 8), (100_000, 16), (100_000, 32), (N_BIG, 16)):
+        lk = torch.randn((1, n, r), generator=gen, device=dev,
+                         dtype=torch.float64)
+        gcol = torch.randn((1, r), generator=gen, device=dev,
+                           dtype=torch.float64)
+        logw = torch.full((1, n), -math.log(n), device=dev,
+                          dtype=torch.float64)
+        dykstra_case(torch, ops, lr, lk, gcol, logw, f"B5 N{n} r{r} f64",
+                     errs)
+    # two launches on the same inputs give the same bits (the blocks'
+    # partials merge in block order after an integer ticket)
+    for dt in (torch.float32, torch.float64):
+        lk = torch.randn((1, N_LR, R_LR), generator=gen, device=dev,
+                         dtype=dt)
+        gcol = torch.randn((1, R_LR), generator=gen, device=dev, dtype=dt)
+        logw = torch.full((1, N_LR), -math.log(N_LR), device=dev, dtype=dt)
+        first = lr.dykstra_half_cuda(lk, gcol, logw)
+        second = lr.dykstra_half_cuda(lk, gcol, logw)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(first, second))
+        say(f"  B5 N{N_LR} r{R_LR} {str(dt)[6:]}: two launches "
+            f"{'give the same bits' if same else 'DIFFER'}")
+        check(same, "B5: two launches on the same inputs differ")
+        del lk
     # zero mass: −inf log-mass and −inf kernel rows, and a column whose
     # kernel entries are all −inf (its column LSE is −inf)
     n, r, dt = N_RAGGED, R_LR, torch.float64
@@ -674,6 +713,49 @@ def compare_lowrank(torch, label, rk, rp, value_rtol, l1_tol):
           f"{label}: factors differ by {l1:.3e}")
 
 
+def profile_solve(torch, label, fn):
+    """One more solve under torch.profiler (CPU and CUDA activities): the
+    device's busy share over the solve's window (the union of the device
+    activities' intervals over the span of all the trace's events) and the
+    device time of the top kernels by name.  The profiler slows the host,
+    so the share is a lower bound of the unprofiled run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    if not dev:
+        say(f"  {label} profiled: device busy share not measured (the "
+            f"profiler recorded no device events); kernel sums by CUDA "
+            f"events in phase 4")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    say(f"  {label} profiled: device busy {busy / 1e3:.3f} ms of a "
+        f"{(hi - lo) / 1e3:.3f} ms window, busy share {busy / (hi - lo):.1%}"
+        f" ({len(dev)} device activities)")
+    rows = {}
+    for e in dev:
+        key = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        t, c = rows.get(key, (0.0, 0))
+        rows[key] = (t + e.time_range.end - e.time_range.start, c + 1)
+    for name, (t, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        say(f"    {t / 1e3:9.3f} ms device, {c:5d}×, {name}")
+
+
 def up(core, c):
     """A factored coupling in float64."""
     return core.LowRankCoupling(c.q.double(), c.r.double(), c.g.double())
@@ -810,6 +892,9 @@ def phase_lowrank_path(torch, np, ops, core):
         add(counts)
         check_lr_launches(f"Run C {tag}", counts, rk.info, True)
         check(rk.coupling.q.dtype == dt, "Run C: dtype changed")
+        if dt == torch.float64:
+            profile_solve(torch, f"Run C {tag}",
+                          lambda: core.entropic_gw(gx, gy, mu, mu, cfg))
         rp, _, walls[f"C {tag} plain"] = run_path(
             torch, ops, f"Run C clouds {N_LR}x3 rank {R_LR} {tag} plain",
             lambda: core.entropic_gw(gx, gy, mu, mu, dataclasses.replace(
@@ -999,6 +1084,46 @@ def lowrank_times(torch, ops, lr, gen):
     return rows
 
 
+def dykstra_times(torch, ops, gen):
+    """B5 in f64 at Runs C, D and E's shapes (N = 10⁶, r = 16; 10⁵, r = 8,
+    16, 32; 8192, r = 16), each beside its bytes bound (lk, gcol and log w
+    read once, f and col written once).  "warm": back to back on one lk,
+    which at 10⁵ and 8192 rows stays in the 50 MB L2; "cold": each launch
+    after a 64 MB write that flushes L2."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for n, r, run in ((N_LR, R_LR, "C"), (100_000, 8, "D"),
+                      (100_000, 16, "D"), (100_000, 32, "D"),
+                      (N_BIG, R_LR, "E")):
+        lk = torch.randn((1, n, r), generator=gen, device="cuda",
+                         dtype=torch.float64)
+        gcol = torch.randn((1, r), generator=gen, device="cuda",
+                           dtype=torch.float64)
+        logw = torch.full((1, n), -math.log(n), device="cuda",
+                          dtype=torch.float64)
+
+        def call():
+            return ops.lr_dykstra_half_batched(lk, gcol, logw)
+
+        warm = time_ms(torch, call, reps=20)
+        cold = 0.0
+        for _ in range(10):
+            flush.fill_(1)
+            torch.cuda._sleep(SLEEP_CYCLES // 20)
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            cold += start.elapsed_time(end) / 10
+        bnd, by = bound_ms((n * r + 2 * n + 2 * r) * 8, 10.0 * n * r,
+                           "float64")
+        say(f"  B5 f64 N{n} r{r} (Run {run}'s shape): {warm:.5f} ms warm, "
+            f"{cold:.5f} ms with L2 flushed, bound {bnd:.5f} ms ({by}), "
+            f"{bnd / cold:.1%} of bound cold")
+        del lk
+
+
 KERNELS = (
     ("sinkhorn_row_update", "B1 row f32", f"B1 row f32 C{N_BIG}x{N_BIG}",
      "src/repro_torch/kernels/csrc/sinkhorn_step.cu",
@@ -1067,6 +1192,7 @@ def main() -> int:
         walls.update(lr_walls)
         rows = phase_times(torch, ops, sinkhorn_step, fgc_scan, gen)
         rows.update(lowrank_times(torch, ops, lr_step, gen))
+        dykstra_times(torch, ops, gen)
         say("  runs (host clock around synchronised work): " + ", ".join(
             f"{k} {v:.3f} s" for k, v in walls.items()))
         say("phase 5: kernels")

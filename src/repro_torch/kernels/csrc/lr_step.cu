@@ -11,15 +11,53 @@
 // B5, one factor side of a Dykstra sweep, for an (N, r) log-kernel lk:
 //   f_i   = log w_i - LSE_j(gcol_j + lk_ij)      (-inf on zero-mass rows)
 //   col_j = LSE_i(f_i + lk_ij)                   (at the new f)
-// Bound: the bytes of lk read once and f written once.  The row LSE runs
-// over only r lanes, so a group of `width` <= 32 lanes of one warp takes a
-// row and reduces it with shuffles (r need not be a power of two: lanes past
-// r are masked by the loop bound).  The column LSE is a reduction over all
-// N rows, which the TPU carries in scratch across its in-order grid; CUDA
-// blocks run in no order, so each block writes one partial (max, sumexp)
-// pair per rank column and a second kernel merges the partials of every
-// column in a fixed order (no float atomics: a sweep is bit-for-bit
-// repeatable, so early-stopping counts are equal run to run).
+// Bound: the bytes of lk read once and f written once, against the issue of
+// two exp an element (one for each LSE): f32 runs near its bytes bound, f64
+// at about 2.3x it (~147 instructions an element, tools/sass_mix.py).
+// The design:
+//   * lk is read from device memory once.  A block takes a contiguous run
+//     of rows (the wrapper's launch plan, `dykstra_plan`, sizes the runs so
+//     that the grid is one wave of resident blocks, at least two an SM)
+//     and walks it a tile at a time.  Each thread copies the 16-byte
+//     vectors of the next tile that it will read itself into shared memory
+//     with cp.async while it works on this one; both phases then read the
+//     staged tile, from registers.
+//   * Tier kernel, for r in {8, 16, 32, 64}: a lane holds K values of a row
+//     (one 16-byte vector, two in f64, whose shuffles and logs then serve
+//     twice the values) and a group of G = r / K lanes of one warp takes
+//     the row, so a warp reads contiguous bytes.  A thread takes RT rows a
+//     tile (RT * NV = 4 vectors) and works on them side by side.  The row
+//     LSE is the reference's form: the row max (the lane's values, then a
+//     shuffle tree over the group), then the sum of exp(z - max) (a
+//     pairwise tree, then the shuffle tree), then the log, each lane taking
+//     the logs of RT / G of the rows.  The column LSE is _online_lse_update
+//     at register scale: for each of its K columns a thread takes the max
+//     over its RT rows, rescales its running sum once (only when the max
+//     rises, a warp-uniform branch: exp(0) = 1 changes no bit), then one
+//     exp a value and a pairwise sum; no branch per element.  No barrier
+//     in the loop: a thread reads only the vectors it copied, and a
+//     group's log w after a warp barrier.
+//   * General kernel, for every other r up to MAX_COLS: the tile is staged
+//     whole (one span of tile_rows * r values), a group of up to 32 lanes
+//     takes a row (max, then sum, then log, as above), and in the column
+//     phase a thread takes one column of a subset of the tile's rows (or up
+//     to 4 columns of all of them when r > 256): the subset's max, one
+//     rescale, one exp an element, in a fixed order.
+//   * Rows that are not 16-byte aligned (an unaligned base, or lanes whose
+//     N * r * sizeof(lk) is not a multiple of 16) take the scalar-load
+//     instantiation of the same kernel: the same tiles and the same order
+//     of sums, loaded without cp.async, so the bits do not depend on the
+//     alignment.
+//   * A fixed-order merge without float atomics, in the reference's form
+//     at each level (the max first, then the sums rescaled to it: exps that
+//     do not wait on each other).  A block merges its threads' column
+//     partials (shuffle trees, then its warps in order) into one
+//     (max, sumexp) pair a column, writes it to scratch ([lane][block]
+//     [column], so the merge's loads are contiguous) and takes an integer
+//     ticket; the last block of a lane to finish merges the lane's
+//     partials (strided subsets, then the subsets in order) and resets the
+//     ticket for the next launch.  One launch a call, and two launches on
+//     the same inputs give the same bits.
 //
 // B6, the factor Gram chain for D = A B^T and a factor Q:
 //   bq = B^T Q (c, r), gram = Q^T (A bq) (r, r), sq = Q^T 1, tq = Q^T w.
@@ -42,16 +80,16 @@
 // cannot contract d2*s + t into an FMA: the kernel and its plain version
 // then differ only in how the c-long dot is summed.
 //
-// Zero-mass atoms: a -inf term contributes nothing to an online (max,
-// sumexp) pair, a merge with a -inf partial keeps the other side, a row
-// whose lanes are all -inf has lse = -inf, and a zero-mass row (log w =
-// -inf) gives f = -inf: never exp(-inf - (-inf)) = NaN, as the reference's
-// guards (repro/kernels/sinkhorn_step.py _online_lse_update/_finish_lse).
+// Zero-mass atoms: a -inf term contributes nothing to a (max, sumexp) pair,
+// a merge with a -inf partial keeps the other side, a row whose lanes are
+// all -inf has lse = -inf, and a zero-mass row (log w = -inf) gives
+// f = -inf: never exp(-inf - (-inf)) = NaN, as the reference's guards
+// (repro/kernels/sinkhorn_step.py _online_lse_update/_finish_lse).
 //
-// lk may be bf16 under f32 or f64 duals: each element is widened with
-// __bfloat162float, and every sum is taken in the duals' type.
-// Each kernel launches on the caller's stream and allocates nothing: the
-// wrapper passes outputs and scratch.
+// lk may be bf16 under f32 or f64 duals: each element is widened exactly
+// (bf16 is the top half of an f32), and every sum is taken in the duals'
+// type.  Each kernel launches on the caller's stream and allocates nothing:
+// the wrapper passes outputs and scratch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -59,6 +97,8 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARP = 32;
+constexpr int WARPS = THREADS / WARP;
 constexpr int MAX_ITEMS = 16;          // register accumulators a thread
 constexpr int SMEM_BYTES = 48 * 1024;  // static limit without opt-in
 
@@ -88,29 +128,125 @@ template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 v) {
   return (T)__bfloat162float(v);
 }
 
-// One element of the online (max, sumexp) reduction.
-template <typename T>
-__device__ __forceinline__ void lse_add(T& m, T& s, T z) {
-  if (z == Num<T>::neg_inf()) return;            // contributes exp(-inf) = 0
-  if (z > m) {
-    s = (m == Num<T>::neg_inf() ? T(0) : s * Num<T>::ex(m - z)) + T(1);
-    m = z;
-  } else {
-    s += Num<T>::ex(z - m);
+// One 16-byte vector of lk: VEC elements; `load` reads one by scalar loads
+// (p need not be 16-byte aligned).
+template <typename LT> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int VEC = 4;
+  __device__ static uint4 load(const float* p) {
+    return make_uint4(__float_as_uint(p[0]), __float_as_uint(p[1]),
+                      __float_as_uint(p[2]), __float_as_uint(p[3]));
+  }
+  template <typename T>
+  __device__ static void unpack(uint4 r, T (&o)[VEC]) {
+    o[0] = (T)__uint_as_float(r.x);
+    o[1] = (T)__uint_as_float(r.y);
+    o[2] = (T)__uint_as_float(r.z);
+    o[3] = (T)__uint_as_float(r.w);
+  }
+};
+template <> struct Vec16<double> {
+  static constexpr int VEC = 2;
+  __device__ static uint4 load(const double* p) {
+    return make_uint4(__double2loint(p[0]), __double2hiint(p[0]),
+                      __double2loint(p[1]), __double2hiint(p[1]));
+  }
+  template <typename T>
+  __device__ static void unpack(uint4 r, T (&o)[VEC]) {
+    o[0] = (T)__hiloint2double((int)r.y, (int)r.x);
+    o[1] = (T)__hiloint2double((int)r.w, (int)r.z);
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+  __device__ static uint4 load(const __nv_bfloat16* p) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    return make_uint4(q[0] | (unsigned)q[1] << 16, q[2] | (unsigned)q[3] << 16,
+                      q[4] | (unsigned)q[5] << 16, q[6] | (unsigned)q[7] << 16);
+  }
+  __device__ static float lo(unsigned w) { return __uint_as_float(w << 16); }
+  __device__ static float hi(unsigned w) {
+    return __uint_as_float(w & 0xffff0000u);
+  }
+  template <typename T>
+  __device__ static void unpack(uint4 r, T (&o)[VEC]) {
+    o[0] = (T)lo(r.x); o[1] = (T)hi(r.x);
+    o[2] = (T)lo(r.y); o[3] = (T)hi(r.y);
+    o[4] = (T)lo(r.z); o[5] = (T)hi(r.z);
+    o[6] = (T)lo(r.w); o[7] = (T)hi(r.w);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+
+// The first `bytes` (0 < bytes <= 16) of a 16-byte copy; the rest is
+// zero-filled and not read from global memory.
+__device__ __forceinline__ void cp_async16_part(void* smem, const void* gmem,
+                                                int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes) : "memory");
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(BYTES) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The larger of a and b: fmaxf in f32 (one instruction); in f64 a compare
+// and select, where fmax's NaN handling costs several (no NaN reaches it).
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) {
+  return a > b ? a : b;
+}
+
+// z[0] <- the pairwise sum (max) of z[0..2W) (W a power of two).
+template <int W, typename T, int K>
+__device__ __forceinline__ void tree_sum(T (&z)[K]) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) z[k] += z[k + W];
+    tree_sum<W / 2>(z);
   }
 }
 
-// Merge a partial (m2, s2) into (m, s).
-template <typename T>
-__device__ __forceinline__ void lse_merge(T& m, T& s, T m2, T s2) {
-  if (m2 == Num<T>::neg_inf()) return;
-  if (m == Num<T>::neg_inf()) { m = m2; s = s2; return; }
-  if (m2 > m) {
-    s = s * Num<T>::ex(m - m2) + s2;
-    m = m2;
-  } else {
-    s = s + s2 * Num<T>::ex(m2 - m);
+template <int W, typename T, int K>
+__device__ __forceinline__ void tree_max(T (&z)[K]) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) z[k] = vmax(z[k], z[k + W]);
+    tree_max<W / 2>(z);
   }
+}
+
+// Merge `count` (max, sumexp) partials m[q * stride], s[q * stride] in a
+// fixed order, in the reference's form: the max first, then the sums
+// rescaled to it (an empty partial, m = -inf and s = 0, adds 0), so no
+// exp waits on another.
+template <typename T>
+__device__ __forceinline__ void merge_max_first(const T* m, const T* s,
+                                                int count, int stride,
+                                                T& mo, T& so) {
+  mo = Num<T>::neg_inf();
+  for (int q = 0; q < count; ++q) mo = vmax(mo, m[q * stride]);
+  so = T(0);
+  if (mo != Num<T>::neg_inf())
+    for (int q = 0; q < count; ++q)
+      so += s[q * stride] * Num<T>::ex(m[q * stride] - mo);
 }
 
 template <typename T>
@@ -118,121 +254,501 @@ __device__ __forceinline__ T lse_finish(T m, T s) {
   return m == Num<T>::neg_inf() ? m : m + Num<T>::lg(s);
 }
 
+// f = log w - lse(mx, sm), -inf where log w = -inf; the shift is the row max
+// where it is finite and 0 elsewhere (an all -inf row gives lse = -inf).
+template <typename T>
+__device__ __forceinline__ T row_dual(T lw, T mx, T sm) {
+  const T lse = isfinite(mx) ? mx + Num<T>::lg(sm) : Num<T>::neg_inf();
+  return lw > Num<T>::neg_inf() ? lw - lse : Num<T>::neg_inf();
+}
+
+template <typename T>
+__device__ __forceinline__ T row_shift(T mx) {
+  return isfinite(mx) ? mx : T(0);
+}
+
 // ---------------------------------------------------------------------------
 // B5: Dykstra half-sweep
 // ---------------------------------------------------------------------------
 
-// Rows [blk*block_rows, ...) of one lane: the row duals f, then one partial
-// (max, sumexp) per rank column, written to part_[ms][(b*r + j)*nblk + blk].
-// width: lanes per row group (a power of two, min(32, >= r));
-// cwidth: columns per pass of the column phase (a power of two, <= THREADS).
-template <typename LT, typename T>
-__global__ void __launch_bounds__(THREADS)
-dykstra_rows(const LT* __restrict__ lk, const T* __restrict__ gcol,
-             const T* __restrict__ logw, T* __restrict__ f,
-             T* __restrict__ part_m, T* __restrict__ part_s, int n, int r,
-             int block_rows, int width, int cwidth) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* f_s = reinterpret_cast<T*>(smem_raw);       // block_rows
-  T* m_s = f_s + block_rows;                     // THREADS
-  T* s_s = m_s + THREADS;                        // THREADS
-  const T NEG = Num<T>::neg_inf();
-  const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int row0 = blk * block_rows;
-  const int rows = min(block_rows, n - row0);
-  const int64_t base = (int64_t)b * n + row0;
-  const LT* lkb = lk + base * r;
-  const T* gb = gcol + (int64_t)b * r;
+constexpr int DK_STAGES = 2;   // a tile in use and the next one in flight
+constexpr int DK_MAX_COLS = 1024;
+constexpr int DK_COLS_A_THREAD = DK_MAX_COLS / THREADS;   // general, r > 256
+constexpr int DK_GENERAL_STAGE = 32 * 1024;   // general kernel: tile bytes
 
-  // row phase: a group of `width` lanes per row; every lane of a warp runs
-  // the same number of iterations, so the shuffles never diverge
-  const int lig = threadIdx.x % width;
-  const int grp = threadIdx.x / width;
-  const int ngrp = THREADS / width;
-  for (int i0 = 0; i0 < rows; i0 += ngrp) {
-    const int i = i0 + grp;
-    const bool live = i < rows;
-    T mx = NEG;
-    if (live) {
-      for (int j = lig; j < r; j += width) {
-        const T z = gb[j] + widen<T>(lkb[(int64_t)i * r + j]);
-        mx = z > mx ? z : mx;
+// The rows [a, b) that block blk of nblk takes: the N rows of a lane in
+// runs of `unit` rows (a whole number of 16-byte vectors of lk), split as
+// evenly as whole runs allow.
+struct BlockRows {
+  int a, b;
+  __device__ BlockRows(int blk, int nblk, int n, int unit) {
+    const int64_t runs = ((int64_t)n + unit - 1) / unit;
+    a = (int)min(runs * blk / nblk * unit, (int64_t)n);
+    b = (int)min(runs * (blk + 1) / nblk * unit, (int64_t)n);
+  }
+};
+
+// The last block of lane b to finish merges the lane's nblk partials of
+// every column ([lane][block][column] in part_m, part_s) in a fixed order
+// and writes col; then it resets the ticket.  Called by every block after
+// it wrote its partials.  Each of `nsub` threads of a column takes every
+// nsub-th partial (the max, then the sum rescaled to it), then one thread
+// a column merges the nsub results in order: no chain of dependent exp
+// runs over the partials.
+template <typename T>
+__device__ void merge_blocks(const T* __restrict__ part_m,
+                             const T* __restrict__ part_s,
+                             unsigned* __restrict__ ticket,
+                             T* __restrict__ col, int r) {
+  __shared__ bool last;
+  __shared__ T mk_s[THREADS], sk_s[THREADS];
+  const int b = blockIdx.y, nblk = gridDim.x;
+  __threadfence();                 // this block's partials, device-wide
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket + b, 1u) == (unsigned)(nblk - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                 // every other block's partials
+  const T NEG = Num<T>::neg_inf();
+  for (int j0 = 0; j0 < r; j0 += THREADS) {
+    const int cw = min(r - j0, THREADS), nsub = THREADS / cw;
+    const int t = threadIdx.x % cw, k = threadIdx.x / cw;
+    T mk = NEG, sk = T(0);
+    if (k < nsub) {
+      // partials are [lane][block][column]: a warp's loads are contiguous
+      const T* pm = part_m + (int64_t)b * nblk * r + j0 + t;
+      const T* ps = part_s + (int64_t)b * nblk * r + j0 + t;
+#pragma unroll 8
+      for (int q = k; q < nblk; q += nsub)
+        mk = vmax(mk, __ldcg(pm + (int64_t)q * r));
+      if (mk != NEG) {   // an empty partial (m = -inf, s = 0) adds 0
+#pragma unroll 8
+        for (int q = k; q < nblk; q += nsub)
+          sk += __ldcg(ps + (int64_t)q * r) *
+                Num<T>::ex(__ldcg(pm + (int64_t)q * r) - mk);
       }
     }
-    for (int off = width / 2; off > 0; off >>= 1) {
-      const T o = __shfl_xor_sync(0xffffffffu, mx, off, width);
-      mx = o > mx ? o : mx;
+    mk_s[threadIdx.x] = mk;
+    sk_s[threadIdx.x] = sk;
+    __syncthreads();
+    if (threadIdx.x < cw) {
+      T m, s;
+      merge_max_first(mk_s + threadIdx.x, sk_s + threadIdx.x, nsub, cw, m, s);
+      col[(int64_t)b * r + j0 + threadIdx.x] = lse_finish(m, s);
     }
-    const bool fin = isfinite(mx);
-    T sm = T(0);
-    if (live && fin) {
-      for (int j = lig; j < r; j += width)
-        sm += Num<T>::ex(gb[j] + widen<T>(lkb[(int64_t)i * r + j]) - mx);
-    }
-    for (int off = width / 2; off > 0; off >>= 1)
-      sm += __shfl_xor_sync(0xffffffffu, sm, off, width);
-    if (live && lig == 0) {
-      const T lse = fin ? mx + Num<T>::lg(sm) : NEG;
-      const T lw = logw[base + i];
-      const T fi = lw > NEG ? lw - lse : NEG;
-      f[base + i] = fi;
-      f_s[i] = fi;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) ticket[b] = 0;
+}
+
+// Store this block's partial of column j in part_m/part_s
+// [lane][block][column].
+template <typename T>
+__device__ __forceinline__ void store_partial(T* part_m, T* part_s, int r,
+                                              int j, T m, T s) {
+  const int64_t o = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * r + j;
+  part_m[o] = m;
+  part_s[o] = s;
+}
+
+// Tier geometry: a lane holds NV 16-byte vectors, K values, of a row; a
+// row is G lanes; a tile is RT rows of each of the THREADS / G groups.  A
+// thread's tile is RT * NV = 4 vectors in every dtype: f64 takes two
+// vectors a row (half the shuffle rounds and logs a value) and two rows.
+template <typename LT, int G> struct Tier {
+  static constexpr int VEC = Vec16<LT>::VEC;
+  static constexpr int NV = sizeof(LT) == 8 ? 2 : 1;
+  static constexpr int K = NV * VEC;
+  static constexpr int RT = 4 / NV;
+  static constexpr int R = G * K;
+  static constexpr int RG = THREADS / G;
+  static constexpr int TR = RT * RG;
+};
+
+// Tier shared memory: (aligned rows) each thread's vectors of a tile and
+// each group's log w, [stage][u][vector][thread] and [stage][u][group];
+// then the warps' column partials.
+template <typename LT, typename T, int G>
+constexpr size_t tier_smem_bytes(bool aligned) {
+  using TI = Tier<LT, G>;
+  return (aligned ? DK_STAGES * TI::RT * (TI::NV * THREADS * sizeof(uint4) +
+                                          TI::RG * sizeof(T))
+                  : 0) +
+         2 * WARPS * TI::R * sizeof(T);
+}
+
+// Issue the copies of the tile at row0 (rows below row_b): this thread's
+// vectors, and the group's log w spread over its lanes.  The caller
+// commits.
+template <typename LT, typename T, int G>
+__device__ __forceinline__ void tier_issue(int row0, int row_b, int slot,
+                                           const LT* lkb, const T* lwb,
+                                           uint4* ring, T* lw, int lane,
+                                           int grp) {
+  using TI = Tier<LT, G>;
+  constexpr int VEC = TI::VEC, NV = TI::NV, R = TI::R, RG = TI::RG;
+  constexpr int RT = TI::RT;
+#pragma unroll
+  for (int u = 0; u < RT; ++u) {
+    const int row = row0 + u * RG + grp;
+    if (row < row_b) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q)
+        cp_async16(ring + ((slot * RT + u) * NV + q) * THREADS + threadIdx.x,
+                   lkb + (int64_t)(row0 + u * RG) * R +
+                       (threadIdx.x * NV + q) * VEC);
     }
   }
-  __syncthreads();
-
-  // column phase at the new f: cwidth columns a pass, the block's rows
-  // split over THREADS / cwidth subsets, merged in a fixed order
-  const int jj = threadIdx.x % cwidth;
-  const int sub = threadIdx.x / cwidth;
-  const int nsub = THREADS / cwidth;
-  for (int j0 = 0; j0 < r; j0 += cwidth) {
-    const int j = j0 + jj;
-    T m = NEG, s = T(0);
-    if (j < r) {
-      for (int i = sub; i < rows; i += nsub)
-        lse_add(m, s, f_s[i] + widen<T>(lkb[(int64_t)i * r + j]));
-    }
-    m_s[threadIdx.x] = m;
-    s_s[threadIdx.x] = s;
-    __syncthreads();
-    if (sub == 0 && j < r) {
-      for (int k = 1; k < nsub; ++k)
-        lse_merge(m, s, m_s[k * cwidth + jj], s_s[k * cwidth + jj]);
-      const int64_t o = ((int64_t)b * r + j) * nblk + blk;
-      part_m[o] = m;
-      part_s[o] = s;
-    }
-    __syncthreads();
+  for (int u = lane; u < RT; u += G) {
+    const int row = row0 + u * RG + grp;
+    if (row < row_b)
+      cp_async_small<sizeof(T)>(lw + (slot * RT + u) * RG + grp, lwb + row);
   }
 }
 
-// col[b, j] = LSE over the nblk partials of column j, in a fixed order.
-template <typename T>
+// Value k of a thread's K values of row u (vectors raw[u][0..NV)).
+template <typename LT, typename T, int NV, int RT>
+__device__ __forceinline__ T value(const uint4 (&raw)[RT][NV], int u, int k) {
+  constexpr int VEC = Vec16<LT>::VEC;
+  T c[VEC];
+  Vec16<LT>::unpack(raw[u][k / VEC], c);
+  return c[k % VEC];
+}
+
+template <typename LT, typename T, int G, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
-dykstra_cols(const T* __restrict__ part_m, const T* __restrict__ part_s,
-             T* __restrict__ col, int r, int nblk) {
-  __shared__ T m_s[THREADS], s_s[THREADS];
-  const int j = blockIdx.x;
-  const int b = blockIdx.y;
-  const int64_t o = ((int64_t)b * r + j) * nblk;
-  T m = Num<T>::neg_inf(), s = T(0);
-  for (int k = threadIdx.x; k < nblk; k += THREADS)
-    lse_merge(m, s, part_m[o + k], part_s[o + k]);
-  m_s[threadIdx.x] = m;
-  s_s[threadIdx.x] = s;
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < stride) {
-      T mm = m_s[threadIdx.x], ss = s_s[threadIdx.x];
-      lse_merge(mm, ss, m_s[threadIdx.x + stride], s_s[threadIdx.x + stride]);
-      m_s[threadIdx.x] = mm;
-      s_s[threadIdx.x] = ss;
+dykstra_tier(const LT* __restrict__ lk, const T* __restrict__ gcol,
+             const T* __restrict__ logw, T* __restrict__ f,
+             T* __restrict__ part_m, T* __restrict__ part_s,
+             unsigned* __restrict__ ticket, T* __restrict__ col, int n,
+             int unit) {
+  using TI = Tier<LT, G>;
+  constexpr int NV = TI::NV, K = TI::K, R = TI::R, RG = TI::RG;
+  constexpr int RT = TI::RT, TR = TI::TR;
+  extern __shared__ uint4 smem[];
+  uint4* ring = smem;                       // [STAGES][RT][NV][THREADS]
+  T* lw = reinterpret_cast<T*>(
+      smem + (ALIGNED ? DK_STAGES * RT * NV * THREADS : 0));  // [ST][RT][RG]
+  T* ms = lw + (ALIGNED ? DK_STAGES * RT * RG : 0);     // [WARPS][R]
+  T* ss = ms + WARPS * R;
+  const T NEG = Num<T>::neg_inf();
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const BlockRows rows(blk, nblk, n, unit);
+  const LT* lkb = lk + (int64_t)b * n * R;
+  const T* lwb = logw + (int64_t)b * n;
+  T* fb = f + (int64_t)b * n;
+  T gc[K], m[K], s[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    gc[k] = gcol[(int64_t)b * R + lane * K + k];
+    m[k] = NEG;
+    s[k] = T(0);
+  }
+  const int ntile = (rows.b - rows.a + TR - 1) / TR;
+  if (ALIGNED) {
+    if (ntile > 0)
+      tier_issue<LT, T, G>(rows.a, rows.b, 0, lkb, lwb, ring, lw, lane, grp);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntile; ++t) {
+    const int slot = t % DK_STAGES, row0 = rows.a + t * TR;
+    if (ALIGNED) {
+      cp_async_wait_all();
+      __syncwarp();    // the group's log w is in; the warp is done with t - 1
+      if (t + 1 < ntile)
+        tier_issue<LT, T, G>(row0 + TR, rows.b, (t + 1) % DK_STAGES, lkb,
+                             lwb, ring, lw, lane, grp);
+      cp_async_commit();
+    }
+    uint4 raw[RT][NV];
+    T lwu[RT];
+    bool valid[RT];
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+      const int row = row0 + u * RG + grp;
+      valid[u] = row < rows.b;
+      lwu[u] = NEG;
+#pragma unroll
+      for (int q = 0; q < NV; ++q) raw[u][q] = make_uint4(0, 0, 0, 0);
+      if (valid[u]) {
+        if (ALIGNED) {
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            raw[u][q] = ring[((slot * RT + u) * NV + q) * THREADS +
+                             threadIdx.x];
+          lwu[u] = lw[(slot * RT + u) * RG + grp];
+        } else {
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            raw[u][q] = Vec16<LT>::load(lkb + (int64_t)row * R + lane * K +
+                                        q * TI::VEC);
+          lwu[u] = lwb[row];
+        }
+      }
+    }
+    // row LSE of the RT rows side by side: the max (the lane's K values,
+    // then a shuffle tree over the group), the sum of exp(z - max) (a
+    // pairwise tree, then the shuffle tree), then the log
+    T mx[RT], sm[RT];
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+      T z[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) z[k] = gc[k] + value<LT, T>(raw, u, k);
+      tree_max<K / 2>(z);
+      mx[u] = z[0];
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < RT; ++u)
+        mx[u] = vmax(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], off, G));
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+      const T sh = row_shift(mx[u]);
+      T z[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        z[k] = Num<T>::ex(gc[k] + value<LT, T>(raw, u, k) - sh);
+      tree_sum<K / 2>(z);
+      sm[u] = z[0];
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < RT; ++u)
+        sm[u] += __shfl_xor_sync(0xffffffffu, sm[u], off, G);
+    // the RT logs spread over the group's lanes (lane l takes rows
+    // l, l + G, ... mod RT), then each row's f from the lane that took it
+    constexpr int NL = (RT + G - 1) / G;
+    T fl[NL];
+#pragma unroll
+    for (int q = 0; q < NL; ++q) {
+      const int uq = (q * G + lane) % RT;
+      T lwq = lwu[0], mxq = mx[0], smq = sm[0];
+#pragma unroll
+      for (int u = 1; u < RT; ++u) {
+        lwq = uq == u ? lwu[u] : lwq;
+        mxq = uq == u ? mx[u] : mxq;
+        smq = uq == u ? sm[u] : smq;
+      }
+      fl[q] = row_dual(lwq, mxq, smq);
+    }
+    T fu[RT];
+#pragma unroll
+    for (int u = 0; u < RT; ++u) {
+      const T fi = __shfl_sync(0xffffffffu, fl[u / G], u % G, G);
+      fu[u] = valid[u] ? fi : NEG;
+      if (valid[u] && lane == 0) fb[row0 + u * RG + grp] = fi;
+    }
+    // column LSE over the tile's RT rows of each of this thread's columns:
+    // the tile's max, one rescale (rare: warp-uniform branch), then one exp
+    // a value and a pairwise sum
+    T zc[K][RT], tmax[K];
+    bool rise = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T t2[RT];
+#pragma unroll
+      for (int u = 0; u < RT; ++u) {
+        zc[k][u] = fu[u] + value<LT, T>(raw, u, k);   // masked: -inf + 0
+        t2[u] = zc[k][u];
+      }
+      tree_max<RT / 2>(t2);
+      tmax[k] = t2[0];
+      rise |= tmax[k] > m[k];
+    }
+    if (__any_sync(0xffffffffu, rise)) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (tmax[k] > m[k]) {   // exp(m - m) = 1: skip it otherwise
+          if (m[k] != NEG) s[k] *= Num<T>::ex(m[k] - tmax[k]);
+          m[k] = tmax[k];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T sh = row_shift(m[k]);   // m = -inf: every zc is -inf, adds 0
+#pragma unroll
+      for (int u = 0; u < RT; ++u) zc[k][u] = Num<T>::ex(zc[k][u] - sh);
+      tree_sum<RT / 2>(zc[k]);
+      s[k] += zc[k][0];
     }
   }
-  if (threadIdx.x == 0) col[(int64_t)b * r + j] = lse_finish(m_s[0], s_s[0]);
+  // the block's partial: the groups of a warp by shuffle trees (the max,
+  // then the sums rescaled to it), then the warps in order
+  T mw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) mw[k] = m[k];
+#pragma unroll
+  for (int off = G; off < WARP; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      mw[k] = vmax(mw[k], __shfl_xor_sync(0xffffffffu, mw[k], off));
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    s[k] = m[k] == NEG ? T(0) : s[k] * Num<T>::ex(m[k] - mw[k]);
+#pragma unroll
+  for (int off = G; off < WARP; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+  const int warp = threadIdx.x / WARP;
+  if (threadIdx.x % WARP < G) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ms[warp * R + lane * K + k] = mw[k];
+      ss[warp * R + lane * K + k] = s[k];
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < R; j += THREADS) {
+    T mj, sj;
+    merge_max_first(ms + j, ss + j, WARPS, R, mj, sj);
+    store_partial(part_m, part_s, R, j, mj, sj);
+  }
+  merge_blocks(part_m, part_s, ticket, col, R);
+}
+
+// General shared memory: the staged tiles, gcol, the tile's f and the
+// column partials of the threads.
+template <typename LT, typename T>
+size_t general_smem_bytes(int r, int tile_rows) {
+  const size_t stage = ((size_t)tile_rows * r * sizeof(LT) + 15) / 16 * 16;
+  return DK_STAGES * stage + ((size_t)r + tile_rows + 2 * THREADS) * sizeof(T);
+}
+
+// Stage the tile at row0 (rows below row_b) into `dst`: 16-byte copies of
+// its one contiguous span when rows are aligned (the last one partial),
+// plain loads otherwise.
+template <typename LT, bool ALIGNED>
+__device__ __forceinline__ void general_issue(int row0, int row_b, int r,
+                                              const LT* lkb, LT* dst) {
+  const LT* src = lkb + (int64_t)row0 * r;
+  const int count = (row_b - row0) * r;
+  if (ALIGNED) {
+    const int bytes = count * (int)sizeof(LT);
+    for (int c = threadIdx.x; c * 16 < bytes; c += THREADS)
+      cp_async16_part(reinterpret_cast<char*>(dst) + c * 16,
+                      reinterpret_cast<const char*>(src) + c * 16,
+                      min(16, bytes - c * 16));
+  } else {
+    for (int e = threadIdx.x; e < count; e += THREADS) dst[e] = src[e];
+  }
+}
+
+template <typename LT, typename T, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+dykstra_general(const LT* __restrict__ lk, const T* __restrict__ gcol,
+                const T* __restrict__ logw, T* __restrict__ f,
+                T* __restrict__ part_m, T* __restrict__ part_s,
+                unsigned* __restrict__ ticket, T* __restrict__ col, int n,
+                int r, int unit, int tile_rows, int width) {
+  extern __shared__ uint4 smem[];
+  const int stage = (tile_rows * r * (int)sizeof(LT) + 15) / 16;
+  T* gs = reinterpret_cast<T*>(smem + DK_STAGES * stage);   // r
+  T* fs = gs + r;                                           // tile_rows
+  T* ms = fs + tile_rows;                                   // THREADS
+  T* ss = ms + THREADS;
+  const T NEG = Num<T>::neg_inf();
+  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const BlockRows rows(blk, nblk, n, unit);
+  const LT* lkb = lk + (int64_t)b * n * r;
+  const T* lwb = logw + (int64_t)b * n;
+  T* fb = f + (int64_t)b * n;
+  for (int j = threadIdx.x; j < r; j += THREADS) gs[j] = gcol[(int64_t)b * r + j];
+  // column phase: subsets of the tile's rows, one column a thread (r <=
+  // THREADS), or all rows and up to DK_COLS_A_THREAD columns
+  const bool narrow = r <= THREADS;
+  const int nsub = narrow ? THREADS / r : 1;
+  const int sub = narrow ? threadIdx.x / r : 0;
+  const bool active = !narrow || threadIdx.x < nsub * r;
+  T m[DK_COLS_A_THREAD], s[DK_COLS_A_THREAD];
+#pragma unroll
+  for (int q = 0; q < DK_COLS_A_THREAD; ++q) { m[q] = NEG; s[q] = T(0); }
+  // row phase: a group of `width` lanes a row
+  const int lig = threadIdx.x % width, grp = threadIdx.x / width;
+  const int ngrp = THREADS / width;
+  const int ntile = (rows.b - rows.a + tile_rows - 1) / tile_rows;
+  if (ntile > 0)
+    general_issue<LT, ALIGNED>(rows.a, min(rows.b, rows.a + tile_rows), r,
+                               lkb, reinterpret_cast<LT*>(smem));
+  cp_async_commit();
+  for (int t = 0; t < ntile; ++t) {
+    const int row0 = rows.a + t * tile_rows;
+    const int nrow = min(tile_rows, rows.b - row0);
+    const LT* tl = reinterpret_cast<const LT*>(smem + (t % DK_STAGES) * stage);
+    cp_async_wait_all();
+    __syncthreads();   // tile t is in; every thread is done with t - 1
+    if (t + 1 < ntile)
+      general_issue<LT, ALIGNED>(row0 + tile_rows,
+                                 min(rows.b, row0 + 2 * tile_rows), r, lkb,
+                                 reinterpret_cast<LT*>(
+                                     smem + ((t + 1) % DK_STAGES) * stage));
+    cp_async_commit();
+    for (int i0 = 0; i0 < nrow; i0 += ngrp) {
+      const int i = i0 + grp;
+      const bool live = i < nrow;
+      T mx = NEG;
+      if (live)
+        for (int j = lig; j < r; j += width)
+          mx = vmax(mx, gs[j] + widen<T>(tl[i * r + j]));
+      for (int off = width / 2; off > 0; off >>= 1)
+        mx = vmax(mx, __shfl_xor_sync(0xffffffffu, mx, off, width));
+      const T sh = row_shift(mx);
+      T sm = T(0);
+      if (live)
+        for (int j = lig; j < r; j += width)
+          sm += Num<T>::ex(gs[j] + widen<T>(tl[i * r + j]) - sh);
+      for (int off = width / 2; off > 0; off >>= 1)
+        sm += __shfl_xor_sync(0xffffffffu, sm, off, width);
+      if (live && lig == 0) {
+        const T fi = row_dual(lwb[row0 + i], mx, sm);
+        fs[i] = fi;
+        fb[row0 + i] = fi;
+      }
+    }
+    __syncthreads();   // the tile's f
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < DK_COLS_A_THREAD; ++q) {
+        const int j = narrow ? threadIdx.x % r : threadIdx.x + q * THREADS;
+        if ((narrow && q > 0) || j >= r) continue;
+        T tm = NEG;
+        for (int i = sub; i < nrow; i += nsub)
+          tm = vmax(tm, fs[i] + widen<T>(tl[i * r + j]));
+        if (tm == NEG) continue;            // an all -inf subset adds 0
+        if (tm > m[q]) {                    // one rescale a tile
+          if (m[q] != NEG) s[q] *= Num<T>::ex(m[q] - tm);
+          m[q] = tm;
+        }
+        T acc = T(0);
+        for (int i = sub; i < nrow; i += nsub)
+          acc += Num<T>::ex(fs[i] + widen<T>(tl[i * r + j]) - m[q]);
+        s[q] += acc;
+      }
+    }
+  }
+  if (narrow) {
+    ms[threadIdx.x] = m[0];
+    ss[threadIdx.x] = s[0];
+    __syncthreads();
+    for (int j = threadIdx.x; j < r; j += THREADS) {
+      T mj, sj;
+      merge_max_first(ms + j, ss + j, nsub, r, mj, sj);
+      store_partial(part_m, part_s, r, j, mj, sj);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < DK_COLS_A_THREAD; ++q) {
+      const int j = threadIdx.x + q * THREADS;
+      if (j < r) store_partial(part_m, part_s, r, j, m[q], s[q]);
+    }
+  }
+  merge_blocks(part_m, part_s, ticket, col, r);
 }
 
 int pow2_at_least(int v, int cap) {
@@ -241,23 +757,102 @@ int pow2_at_least(int v, int cap) {
   return w;
 }
 
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// Launch `kern` with `smem` bytes of dynamic shared memory, after raising
+// the kernel's limit to it (by default 48 KB).
+template <typename K, typename... A>
+cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t st,
+                   A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// Call fn(kernel, shared-memory bytes) with the tier kernel of rank r, one
+// of {8, 16, 32, 64} (`is_tier`).
+template <typename LT, typename T, bool ALIGNED, typename F>
+cudaError_t with_tier(int r, F&& fn) {
+  constexpr int K = Tier<LT, 1>::K;
+#define DK_TIER(R_)                                                          \
+  case R_:                                                                   \
+    return fn(dykstra_tier<LT, T, R_ / K, ALIGNED>,                          \
+              tier_smem_bytes<LT, T, R_ / K>(ALIGNED));
+  switch (r) {
+    DK_TIER(8) DK_TIER(16) DK_TIER(32) DK_TIER(64)
+    default: return cudaErrorInvalidValue;
+  }
+#undef DK_TIER
+}
+
+// Whether r takes the tier kernel: r in {8, 16, 32, 64} (the main path's
+// ranks), as `dykstra_plan` decides.
+bool is_tier(int r) { return r == 8 || r == 16 || r == 32 || r == 64; }
+
+template <typename LT, typename T, bool ALIGNED>
+cudaError_t launch_dykstra_al(const void* lk, const void* gcol,
+                              const void* logw, void* f, void* col,
+                              void* part_m, void* part_s, void* ticket,
+                              int lanes, int n, int r, int unit,
+                              int blocks, int tile_rows, cudaStream_t st) {
+  const dim3 grid(blocks, lanes);
+  if (is_tier(r)) {
+    if (tile_rows != Tier<LT, 1>::RT * THREADS * Tier<LT, 1>::K / r)
+      return cudaErrorInvalidValue;
+    return with_tier<LT, T, ALIGNED>(r, [&](auto kern, size_t smem) {
+      return launch(kern, grid, smem, st, (const LT*)lk, (const T*)gcol,
+                    (const T*)logw, (T*)f, (T*)part_m, (T*)part_s,
+                    (unsigned*)ticket, (T*)col, n, unit);
+    });
+  }
+  if ((int64_t)tile_rows * r * sizeof(LT) > DK_GENERAL_STAGE)
+    return cudaErrorInvalidValue;
+  return launch(dykstra_general<LT, T, ALIGNED>, grid,
+                general_smem_bytes<LT, T>(r, tile_rows), st, (const LT*)lk,
+                (const T*)gcol, (const T*)logw, (T*)f, (T*)part_m, (T*)part_s,
+                (unsigned*)ticket, (T*)col, n, r, unit, tile_rows,
+                pow2_at_least(r, WARP));
+}
+
 template <typename LT, typename T>
 int launch_dykstra(const void* lk, const void* gcol, const void* logw,
-                   void* f, void* col, void* part_m, void* part_s, int lanes,
-                   int n, int r, int block_rows, void* stream) {
-  const int nblk = (n + block_rows - 1) / block_rows;
-  const size_t smem = (size_t)(block_rows + 2 * THREADS) * sizeof(T);
-  if (smem > (size_t)SMEM_BYTES) return (int)cudaErrorInvalidValue;
+                   void* f, void* col, void* part_m, void* part_s,
+                   void* ticket, int lanes, int n, int r, int unit,
+                   int blocks, int tile_rows, void* stream) {
+  if (r < 1 || r > DK_MAX_COLS || tile_rows < 1 || unit < 1 || blocks < 1 ||
+      blocks > ((int64_t)n + unit - 1) / unit)
+    return (int)cudaErrorInvalidValue;   // no block may be empty
+  // every lane's base, block's first row and tile's first row 16-byte
+  // aligned: then each tile is whole 16-byte vectors from an aligned start
+  const size_t rb = (size_t)r * sizeof(LT);
+  const bool al = aligned16(lk) &&
+                  (lanes == 1 || ((size_t)n * rb) % 16 == 0) &&
+                  ((size_t)unit * rb) % 16 == 0 &&
+                  ((size_t)tile_rows * rb) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  dykstra_rows<LT, T><<<dim3(nblk, lanes), THREADS, smem, st>>>(
-      (const LT*)lk, (const T*)gcol, (const T*)logw, (T*)f, (T*)part_m,
-      (T*)part_s, n, r, block_rows, pow2_at_least(r, 32),
-      pow2_at_least(r, THREADS));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dykstra_cols<T><<<dim3(r, lanes), THREADS, 0, st>>>(
-      (const T*)part_m, (const T*)part_s, (T*)col, r, nblk);
-  return (int)cudaGetLastError();
+  return (int)(al ? launch_dykstra_al<LT, T, true>(
+                        lk, gcol, logw, f, col, part_m, part_s, ticket,
+                        lanes, n, r, unit, blocks, tile_rows, st)
+                  : launch_dykstra_al<LT, T, false>(
+                        lk, gcol, logw, f, col, part_m, part_s, ticket,
+                        lanes, n, r, unit, blocks, tile_rows, st));
+}
+
+// Resident blocks an SM of the kernel (aligned rows) that takes rank r.
+template <typename LT, typename T>
+int dykstra_residency(int r, int tile_rows, int* out) {
+  auto occupancy = [&](auto kern, size_t smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, THREADS,
+                                                         smem);
+  };
+  if (is_tier(r)) return (int)with_tier<LT, T, true>(r, occupancy);
+  return (int)occupancy(dykstra_general<LT, T, true>,
+                        general_smem_bytes<LT, T>(r, tile_rows));
 }
 
 // ---------------------------------------------------------------------------
@@ -484,19 +1079,24 @@ int launch_combine(const void* a, const void* wm, const void* d2,
 
 }  // namespace
 
-#define DYKSTRA_ENTRY(NAME, LT, T)                                           \
-  extern "C" int NAME(const void* lk, const void* gcol, const void* logw,    \
-                      void* f, void* col, void* part_m, void* part_s,        \
-                      int lanes, int n, int r, int block_rows,               \
-                      void* stream) {                                        \
-    return launch_dykstra<LT, T>(lk, gcol, logw, f, col, part_m, part_s,     \
-                                 lanes, n, r, block_rows, stream);           \
+#define DYKSTRA_ENTRY(TAG, LT, T)                                            \
+  extern "C" int lr_dykstra_half_##TAG(                                     \
+      const void* lk, const void* gcol, const void* logw, void* f,          \
+      void* col, void* part_m, void* part_s, void* ticket, int lanes,       \
+      int n, int r, int unit, int blocks, int tile_rows, void* stream) {    \
+    return launch_dykstra<LT, T>(lk, gcol, logw, f, col, part_m, part_s,    \
+                                 ticket, lanes, n, r, unit, blocks,         \
+                                 tile_rows, stream);                        \
+  }                                                                         \
+  extern "C" int lr_dykstra_residency_##TAG(int r, int tile_rows,           \
+                                            int* out) {                     \
+    return dykstra_residency<LT, T>(r, tile_rows, out);                     \
   }
 
-DYKSTRA_ENTRY(lr_dykstra_half_f32_f32, float, float)
-DYKSTRA_ENTRY(lr_dykstra_half_f64_f64, double, double)
-DYKSTRA_ENTRY(lr_dykstra_half_bf16_f32, __nv_bfloat16, float)
-DYKSTRA_ENTRY(lr_dykstra_half_bf16_f64, __nv_bfloat16, double)
+DYKSTRA_ENTRY(f32_f32, float, float)
+DYKSTRA_ENTRY(f64_f64, double, double)
+DYKSTRA_ENTRY(bf16_f32, __nv_bfloat16, float)
+DYKSTRA_ENTRY(bf16_f64, __nv_bfloat16, double)
 
 #define GRAM_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* a, const void* b, const void* q,           \

@@ -18,8 +18,10 @@ Every function here takes B lanes: (B, N, ·) factors and (B, ·) vectors.
 The single-problem path calls them with B = 1.  The CUDA source is
 ``csrc/lr_step.cu``; its note says how the sequential grid axes of the TPU
 kernels became per-block partials merged in a fixed order.  What bounds
-each on the card is bytes: lk (B5), the factors read in two passes (B6),
-the factor and the (N, r) output (B7).
+each on the card is bytes: lk (B5, against the issue of two ``exp`` an
+element), the factors read in two passes (B6), the factor and the (N, r)
+output (B7).  B5's grid comes from `dykstra_plan`, a pure function of the
+shape and the card's SM count, so the CPU tests hold it.
 
 The plain versions are the same functions in PyTorch ops, with the kernels'
 association (B6: BᵀQ first; B7: the quad term A·W against the (c, r) seed).
@@ -30,6 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,9 +41,22 @@ from repro_torch.kernels.sinkhorn_step import MAX_LANES, _lse
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64",
               torch.bfloat16: "bf16"}
-#: rows a block of the Dykstra kernel takes, and of each Gram-chain pass
-DYKSTRA_ROWS = 256
+#: rows a block of each Gram-chain pass takes
 GRAM_ROWS = 1024
+#: B5's geometry (``csrc/lr_step.cu``): ranks in DYKSTRA_TIERS take the
+#: tier kernel, whose tile is DYKSTRA_TILE_VECS 16-byte vectors of lk a
+#: thread (a lane holds one vector of a row, two in f64);
+#: every other rank takes the general kernel, whose tile is at most
+#: DYKSTRA_STAGE_BYTES of lk and DYKSTRA_MAX_TILE_ROWS rows.  The grid is
+#: one wave of the blocks an SM holds, and at least
+#: DYKSTRA_MIN_BLOCKS_PER_SM of them wherever N has the rows.
+DYKSTRA_THREADS = 256
+DYKSTRA_TIERS = (8, 16, 32, 64)
+DYKSTRA_TILE_VECS = 4
+DYKSTRA_STAGE_BYTES = 32 * 1024
+DYKSTRA_MAX_TILE_ROWS = 1024
+DYKSTRA_MIN_BLOCKS_PER_SM = 2
+MAX_ROWS = 2 ** 31 - 1     # N is an int in the kernels
 #: the kernels' limits: r and c up to this many columns, and B7's
 #: (c + 3)·r values of shared memory within 48 KiB
 MAX_COLS = 1024
@@ -72,11 +89,88 @@ def grad_combine_plain(a, w_small, d2, s, t, iq):
             - 4.0 * quad) * iq[:, None, :]
 
 
-@functools.cache
-def _entry(name: str, n_ptr: int, n_int: int):
+class DykstraPlan(NamedTuple):
+    """B5's launch: `blocks` blocks a lane, each a run of whole `unit`-row
+    pieces (a 16-byte multiple of lk), as even as the pieces allow, so a
+    block takes at most block_rows rows, a tile of tile_rows at a time."""
+    tile_rows: int
+    unit: int
+    block_rows: int
+    tiles_per_block: int
+    blocks: int
+
+
+def dykstra_block_rows(plan, n, blk):
+    """The rows [a, b) that block `blk` of the plan takes (the kernels'
+    `BlockRows`)."""
+    units = -(-n // plan.unit)
+    return (min(units * blk // plan.blocks * plan.unit, n),
+            min(units * (blk + 1) // plan.blocks * plan.unit, n))
+
+
+def dykstra_tile_rows(r, itemsize):
+    """Rows of one B5 tile for rank r and lk of `itemsize` bytes: the tier
+    kernel's DYKSTRA_TILE_VECS vectors a thread, or the general kernel's
+    stage, a whole number of 16-byte vectors."""
+    if r in DYKSTRA_TIERS:
+        return DYKSTRA_TILE_VECS * DYKSTRA_THREADS * 16 // (r * itemsize)
+    unit = _row_unit(r, itemsize)
+    rows = min(DYKSTRA_MAX_TILE_ROWS, DYKSTRA_STAGE_BYTES // (r * itemsize))
+    return max(unit, rows - rows % unit)
+
+
+def _row_unit(r, itemsize):
+    """The fewest rows whose bytes are a whole number of 16-byte vectors."""
+    return 16 // math.gcd(r * itemsize, 16)
+
+
+def dykstra_plan(lanes, n, r, itemsize, sms,
+                 blocks_per_sm=DYKSTRA_MIN_BLOCKS_PER_SM):
+    """B5's grid for `lanes` lanes of an (N, r) lk of `itemsize` bytes on a
+    card of `sms` SMs that holds `blocks_per_sm` of its blocks: one wave of
+    blocks_per_sm·sms blocks over all lanes (at least
+    DYKSTRA_MIN_BLOCKS_PER_SM an SM, fewer only where N has fewer row
+    units), none empty."""
+    if not (1 <= lanes <= MAX_LANES and 1 <= n <= MAX_ROWS
+            and 1 <= r <= MAX_COLS):
+        raise ValueError(f"B5 cannot take {lanes} lanes of ({n}, {r})")
+    if itemsize not in (2, 4, 8):
+        raise ValueError(f"B5 takes lk of 2, 4 or 8 bytes, not {itemsize}")
+    unit = _row_unit(r, itemsize)
+    tile_rows = dykstra_tile_rows(r, itemsize)
+    per_sm = max(DYKSTRA_MIN_BLOCKS_PER_SM, blocks_per_sm)
+    units = -(-n // unit)
+    blocks = min(units, max(1, -(-per_sm * sms // lanes)))
+    block_rows = -(-units // blocks) * unit
+    return DykstraPlan(tile_rows, unit, block_rows,
+                       -(-block_rows // tile_rows), blocks)
+
+
+def dykstra_smem_bytes(r, itemsize, dual_bytes):
+    """Shared memory of a B5 block (aligned rows), as the kernels lay it
+    out: the tier kernel's two stages of vectors and log w and its warps'
+    column partials, or the general kernel's two tiles, gcol, the tile's f
+    and the threads' column partials; then the final merge's partials."""
+    tile_rows = dykstra_tile_rows(r, itemsize)
+    merge = 2 * DYKSTRA_THREADS * dual_bytes + 16
+    if r in DYKSTRA_TIERS:
+        return (2 * (DYKSTRA_TILE_VECS * DYKSTRA_THREADS * 16
+                     + tile_rows * dual_bytes)
+                + 2 * (DYKSTRA_THREADS // 32) * r * dual_bytes + merge)
+    stage = -(-tile_rows * r * itemsize // 16) * 16
+    return (2 * stage + (r + tile_rows + 2 * DYKSTRA_THREADS) * dual_bytes
+            + merge)
+
+
+def _library():
     from repro_torch.kernels import build
 
-    fn = getattr(build.library("lr_step"), name)
+    return build.library("lr_step")
+
+
+@functools.cache
+def _entry(name: str, n_ptr: int, n_int: int):
+    fn = getattr(_library(), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -122,20 +216,54 @@ def _float_dtype(t):
     return t.dtype
 
 
+@functools.cache
+def _launch_plan(tag, lanes, n, r, itemsize, device):
+    """B5's plan on `device`, one wave of the blocks its SMs hold (the
+    kernel's occupancy, asked of the runtime once a shape)."""
+    tile_rows = dykstra_tile_rows(r, itemsize)
+    fn = getattr(_library(), f"lr_dykstra_residency_{tag}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(r, tile_rows, ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"lr_dykstra_residency_{tag}: CUDA error {rc}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dykstra_plan(lanes, n, r, itemsize, sms, resident.value)
+
+
+#: B5's integer tickets, one a lane, by (device, stream): zero between
+#: launches (the last block of a lane resets its own)
+_TICKETS: dict = {}
+
+
+def _tickets(dev, lanes):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None or ticket.numel() < lanes:
+        ticket = _TICKETS[key] = torch.zeros(lanes, dtype=torch.int32,
+                                             device=dev)
+    return ticket
+
+
 def dykstra_half_cuda(lk, gcol, logw):
     """Launch B5: lk (B, N, r) (the duals' dtype or bfloat16), gcol (B, r),
     log w (B, N) → (f (B, N), col (B, r))."""
     lanes, n, r = _dims(lk, "lk")
     dt = _float_dtype(gcol)
+    dev = lk.device
     _check((("lk", lk), ("gcol", gcol), ("logw", logw)),
-           ((lanes, n, r), (lanes, r), (lanes, n)), dt, lk.device)
-    nblk = -(-n // DYKSTRA_ROWS)
-    f = torch.empty((lanes, n), dtype=dt, device=lk.device)
-    col = torch.empty((lanes, r), dtype=dt, device=lk.device)
-    part = torch.empty((2, lanes, r, nblk), dtype=dt, device=lk.device)
-    _call(f"lr_dykstra_half_{_DTYPE_TAG[lk.dtype]}_{_DTYPE_TAG[dt]}", 4,
-          lk.device, (lk, gcol, logw, f, col, part[0], part[1]),
-          (lanes, n, r, DYKSTRA_ROWS))
+           ((lanes, n, r), (lanes, r), (lanes, n)), dt, dev)
+    tag = f"{_DTYPE_TAG[lk.dtype]}_{_DTYPE_TAG[dt]}"
+    plan = _launch_plan(tag, lanes, n, r, lk.element_size(), dev)
+    f = torch.empty((lanes, n), dtype=dt, device=dev)
+    col = torch.empty((lanes, r), dtype=dt, device=dev)
+    part = torch.empty((2, lanes, plan.blocks, r), dtype=dt, device=dev)
+    _call(f"lr_dykstra_half_{tag}", 6, dev,
+          (lk, gcol, logw, f, col, part[0], part[1], _tickets(dev, lanes)),
+          (lanes, n, r, plan.unit, plan.blocks, plan.tile_rows))
     return f, col
 
 

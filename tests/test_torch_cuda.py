@@ -294,7 +294,8 @@ def _lk(gen, lanes, n, r, dtype, zero_rows=()):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,r", [(1, 1), (45, 6), (300, 16), (257, 64),
-                                 (100_003, 16)])
+                                 (100_003, 16), (100_000, 8), (100_000, 32),
+                                 (8192, 16)])
 def test_dykstra_half_matches_plain(dev, dtype, n, r):
     gen = _gen(n + r)
     lk, logw = _lk(gen, 2, n, r, dtype, zero_rows=range(0, n, 7))
@@ -360,6 +361,89 @@ def test_dykstra_half_bf16_lk(dev):
                        torch.ones_like(wf))[fin]
     assert ((f - wf).abs()[fin] <= (2 * r + 4) * u * sf).all()
     _assert_col(col, wcol, n, r, u, lk16, gcol, logw)
+
+
+def test_dykstra_half_bf16_lk_f64_duals(dev):
+    """bf16 lk under f64 duals: both versions widen lk exactly, so the f64
+    bars of `test_dykstra_half_matches_plain` hold."""
+    gen = _gen(6)
+    n, r = 1000, 16
+    lk, logw = _lk(gen, 2, n, r, torch.float64, zero_rows=(0, 999))
+    gcol = torch.randn((2, r), generator=gen, device=dev,
+                       dtype=torch.float64)
+    lk16 = lk.to(torch.bfloat16)
+    f, col = lr_step.dykstra_half_cuda(lk16, gcol, logw)
+    wf, wcol = lr_step.dykstra_half_plain(lk16, gcol, logw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(f), torch.isneginf(wf))
+    u = _u(torch.float64)
+    fin = torch.isfinite(wf)
+    sf = torch.maximum(torch.maximum(logw.abs(), wf.abs()),
+                       torch.ones_like(wf))[fin]
+    assert ((f - wf).abs()[fin] <= (2 * r + 4) * u * sf).all()
+    _assert_col(col, wcol, n, r, u, lk16, gcol, logw)
+
+
+def test_dykstra_half_unaligned_lane(dev):
+    """Two lanes of an odd N at r = 5 in f32: the second lane starts 20·N
+    bytes in, off a 16-byte boundary, so the launch takes the scalar-load
+    instantiation; it holds the bars of the aligned kernels."""
+    gen = _gen(7)
+    n, r = 1001, 5
+    lk, logw = _lk(gen, 2, n, r, torch.float32, zero_rows=(3, 500))
+    assert (n * r * lk.element_size()) % 16 != 0
+    gcol = torch.randn((2, r), generator=gen, device=dev)
+    f, col = lr_step.dykstra_half_cuda(lk, gcol, logw)
+    wf, wcol = lr_step.dykstra_half_plain(lk, gcol, logw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(f), torch.isneginf(wf))
+    u = _u(torch.float32)
+    fin = torch.isfinite(wf)
+    sf = torch.maximum(torch.maximum(logw.abs(), wf.abs()),
+                       torch.ones_like(wf))[fin]
+    assert ((f - wf).abs()[fin] <= (2 * r + 4) * u * sf).all()
+    _assert_col(col, wcol, n, r, u, lk, gcol, logw)
+
+
+@pytest.mark.parametrize("r", [5, 16, 64, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dykstra_half_alignment_changes_no_bit(dev, r, dtype):
+    """lk whose storage starts one element past a 16-byte boundary runs the
+    scalar-load instantiation of the same kernel (tier or general); it
+    sums in the same tiles and order as an aligned copy, so the bits
+    agree."""
+    gen = _gen(8 + r)
+    lk, logw = _lk(gen, 1, 20_011, r, dtype, zero_rows=(0, 7))
+    gcol = torch.randn((1, r), generator=gen, device=dev, dtype=dtype)
+    flat = torch.empty(lk.numel() + 1, device="cuda", dtype=dtype)
+    shifted = flat[1:].view(lk.shape)
+    shifted.copy_(lk)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = lr_step.dykstra_half_cuda(shifted, gcol, logw)
+    want = lr_step.dykstra_half_cuda(lk, gcol, logw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n,r,lk_dtype,dtype", [
+    (1_000_000, 16, torch.float64, torch.float64),
+    (100_000, 32, torch.float32, torch.float32),
+    (8192, 16, torch.bfloat16, torch.float32),
+    (30_001, 300, torch.float64, torch.float64)])
+def test_dykstra_half_bitwise_repeatable(dev, n, r, lk_dtype, dtype):
+    """Two launches on the same inputs give the same bits: the blocks'
+    partials merge in block order after an integer ticket, never by float
+    atomics."""
+    gen = _gen(n + r)
+    lk, logw = _lk(gen, 2, n, r, dtype, zero_rows=(1,))
+    lk = lk.to(lk_dtype)
+    gcol = torch.randn((2, r), generator=gen, device=dev, dtype=dtype)
+    first = lr_step.dykstra_half_cuda(lk, gcol, logw)
+    second = lr_step.dykstra_half_cuda(lk, gcol, logw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def _factors(gen, lanes, n, c, r, dtype):

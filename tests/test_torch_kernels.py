@@ -8,7 +8,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import sinkhorn_step as jsk
-from repro_torch.kernels import build, fgc_scan, ops, sinkhorn_step
+from repro_torch.kernels import build, fgc_scan, lr_step, ops, sinkhorn_step
 
 RNG = np.random.default_rng(11)
 
@@ -212,6 +212,78 @@ def test_col_split_fills_the_card(m, cost_bytes):
 def test_col_split_refuses_too_many_splits():
     with pytest.raises(ValueError, match="splits"):
         sinkhorn_step.col_split(1, 10 ** 8, 1, 8, 10 ** 6)
+
+
+_DK_SHAPES = [(1, 1, 1, 4), (1, 5, 5, 4), (2, 1001, 5, 4), (1, 8192, 16, 8),
+              (1, 8192, 8, 2), (3, 100_003, 16, 4), (1, 10 ** 6, 16, 8),
+              (1, 10 ** 6, 64, 2), (4, 999_983, 300, 8), (2, 70, 1024, 8),
+              (1, 257, 1023, 2), (65535, 3, 2, 8), (7, 100_000, 32, 4)]
+
+
+@pytest.mark.parametrize("lanes,n,r,itemsize", _DK_SHAPES)
+def test_dykstra_plan_covers_rows(lanes, n, r, itemsize):
+    """B5's plan: every row of a lane in exactly one block, no block empty,
+    each block's and each tile's first row on a 16-byte boundary of lk,
+    and a block's rows within its tiles."""
+    plan = lr_step.dykstra_plan(lanes, n, r, itemsize, 132)
+    spans = [lr_step.dykstra_block_rows(plan, n, k)
+             for k in range(plan.blocks)]
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(b > a for a, b in spans)
+    assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+    assert all((a * r * itemsize) % 16 == 0 for a, _ in spans)
+    assert max(b - a for a, b in spans) <= plan.block_rows
+    assert (plan.tile_rows * r * itemsize) % 16 == 0
+    assert plan.tiles_per_block * plan.tile_rows >= plan.block_rows
+    assert (plan.tiles_per_block - 1) * plan.tile_rows < plan.block_rows
+    assert 1 <= plan.blocks <= n
+
+
+@pytest.mark.parametrize("n", [8192, 100_000, 10 ** 6])
+@pytest.mark.parametrize("r", [8, 16, 32, 64])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+def test_dykstra_plan_fills_the_card(n, r, itemsize):
+    """At Runs C, D and E's N and the ranks of Run D and phase 2, the grid
+    puts at least two blocks on each of a 132-SM card's SMs, and with a
+    residency of 3 it is one wave of three an SM."""
+    plan = lr_step.dykstra_plan(1, n, r, itemsize, 132)
+    assert plan.blocks == 2 * 132
+    plan3 = lr_step.dykstra_plan(1, n, r, itemsize, 132, blocks_per_sm=3)
+    assert plan3.blocks == 3 * 132
+
+
+@pytest.mark.parametrize("lanes", [2, 3, 64])
+def test_dykstra_plan_spreads_lanes(lanes):
+    """Several lanes share the wave: blocks·lanes covers it."""
+    plan = lr_step.dykstra_plan(lanes, 10 ** 5, 16, 8, 132)
+    assert plan.blocks * lanes >= 2 * 132
+
+
+@pytest.mark.parametrize("r", [1, 5, 8, 16, 32, 64, 100, 256, 257, 1023,
+                               1024])
+@pytest.mark.parametrize("itemsize,dual_bytes", [(4, 4), (8, 8), (2, 4),
+                                                 (2, 8)])
+def test_dykstra_smem_within_the_limit(r, itemsize, dual_bytes):
+    """A B5 block's shared memory stays within what an H100 block can opt
+    in to (227 KB), with room for two blocks an SM."""
+    smem = lr_step.dykstra_smem_bytes(r, itemsize, dual_bytes)
+    assert smem * 2 <= 232_448
+    rows = lr_step.dykstra_tile_rows(r, itemsize)
+    if r in lr_step.DYKSTRA_TIERS:
+        assert rows * r * itemsize == \
+            lr_step.DYKSTRA_TILE_VECS * lr_step.DYKSTRA_THREADS * 16
+    else:
+        assert rows * r * itemsize <= lr_step.DYKSTRA_STAGE_BYTES
+        assert rows <= lr_step.DYKSTRA_MAX_TILE_ROWS
+
+
+@pytest.mark.parametrize("lanes,n,r,itemsize,what", [
+    (0, 10, 4, 8, "lanes"), (1, 0, 4, 8, "lanes"), (1, 10, 0, 8, "lanes"),
+    (1, 10, 1025, 8, "lanes"), (65536, 10, 4, 8, "lanes"),
+    (1, 2 ** 31, 4, 8, "lanes"), (1, 10, 4, 3, "bytes")])
+def test_dykstra_plan_refuses(lanes, n, r, itemsize, what):
+    with pytest.raises(ValueError, match=what):
+        lr_step.dykstra_plan(lanes, n, r, itemsize, 132)
 
 
 @pytest.mark.parametrize("mangled,want", [

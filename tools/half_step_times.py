@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Time the Sinkhorn half-step kernels (B1 row, B2 column) of one source
-tree on one NVIDIA card.
+"""Time the Sinkhorn half-step kernels (B1 row, B2 column) and the Dykstra
+half-sweep (B5) of one source tree on one NVIDIA card.
 
-    python3 tools/half_step_times.py [--src DIR] [--reps 50]
+    python3 tools/half_step_times.py [--src DIR] [--reps 50] [--only KIND]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``), builds
-its kernels, and times each half-step with CUDA events at the dense main
-path's shapes: 8192 × 8192 in f32, f64 and bf16 C under f32 duals (Run A),
-4096 × 4096 in f64 (Run B), and 8192 × 8191 in f32 (rows that are not
-16-byte aligned).  Inputs come from a fixed seed, so two trees see the same
-data.  Prints the card, then one JSON line a case with the time, the bytes
-bound (C read once, the vectors once) and the share of it reached.  To
-compare two trees, run it on each in turns (A, B, B, A) in one session on
-one card.
+its kernels, and times each kernel with CUDA events at the main path's
+shapes: the half-steps at 8192 × 8192 in f32, f64 and bf16 C under f32
+duals (Run A), 4096 × 4096 in f64 (Run B), and 8192 × 8191 in f32 (rows
+that are not 16-byte aligned); B5 at N = 10⁶, r = 16 in f32, f64 and bf16
+lk under f32 duals (Run C), N = 10⁵ at r = 8, 16, 32 in f64 (Run D) and
+N = 8192, r = 16 in f64 (Run E).  B5 is timed twice: back to back on the
+same lk ("warm": at 10⁵ and 8192 rows lk stays in the 50 MB L2), and
+each launch after a 64 MB write that flushes L2 ("cold", an event pair
+around each launch).  Before each timed stretch the card sleeps while the
+host enqueues it, so the events time the kernels, not the host's issue;
+the host's own time a call is printed beside them ("host_ms").  Inputs come from a fixed seed, so two trees see the
+same data.  Prints the card, then one JSON line a case with the time, the
+bytes bound (the inputs read once, the outputs written once) and the share
+of it reached.  To compare two trees, run it on each in turns (A, B, B, A)
+in one session on one card.
 """
 from __future__ import annotations
 
@@ -21,10 +28,19 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 SEED = 20240413
+SLEEP_CYCLES = 20_000_000              # ~10 ms at the H100's 1.98 GHz
+LR_CASES = (("f32", 10 ** 6, 16, "float32", "float32"),
+            ("f64", 10 ** 6, 16, "float64", "float64"),
+            ("bf16-lk/f32", 10 ** 6, 16, "float32", "bfloat16"),
+            ("f64", 10 ** 5, 8, "float64", "float64"),
+            ("f64", 10 ** 5, 16, "float64", "float64"),
+            ("f64", 10 ** 5, 32, "float64", "float64"),
+            ("f64", 8192, 16, "float64", "float64"))
 CASES = (("f32", 8192, 8192, "float32", "float32"),
          ("f64", 8192, 8192, "float64", "float64"),
          ("bf16-C/f32", 8192, 8192, "float32", "bfloat16"),
@@ -37,6 +53,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--only", choices=("half", "dykstra"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -53,6 +70,58 @@ def main() -> int:
     gen.manual_seed(SEED)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if args.only != "dykstra":
+        half_steps(torch, ops, gen, start, end, args)
+    if args.only != "half":
+        dykstra(torch, ops, gen, start, end, args)
+    return 0
+
+
+def dykstra(torch, ops, gen, start, end, args):
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for tag, n, r, dname, lname in LR_CASES:
+        dt = getattr(torch, dname)
+        lk = torch.randn((1, n, r), generator=gen, device="cuda",
+                         dtype=dt).to(getattr(torch, lname))
+        gcol = torch.randn((1, r), generator=gen, device="cuda", dtype=dt)
+        logw = torch.full((1, n), -math.log(n), device="cuda", dtype=dt)
+        vb = torch.finfo(dt).bits // 8
+        # lk, gcol and log w read once, f and col written once
+        nbytes = lk.numel() * lk.element_size() + (2 * n + 2 * r) * vb
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        fn = ops.lr_dykstra_half_batched
+        fn(lk, gcol, logw)
+        torch.cuda.synchronize()
+        # the card sleeps while the host enqueues, so the events time the
+        # kernels and not the host's issue of them
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            fn(lk, gcol, logw)
+        host = (time.perf_counter() - t0) / args.reps * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        warm = start.elapsed_time(end) / args.reps
+        cold = 0.0
+        for _ in range(args.reps):
+            flush.fill_(1)
+            torch.cuda._sleep(SLEEP_CYCLES // 20)
+            start.record()
+            fn(lk, gcol, logw)
+            end.record()
+            torch.cuda.synchronize()
+            cold += start.elapsed_time(end)
+        cold /= args.reps
+        print(json.dumps({"src": args.src, "kernel": "dykstra", "dtype": tag,
+                          "n": n, "r": r, "ms": warm, "cold_ms": cold,
+                          "host_ms": host, "bound_ms": bound,
+                          "of_bound": bound / warm}),
+              flush=True)
+        del lk
+
+
+def half_steps(torch, ops, gen, start, end, args):
     for tag, m, n, dname, cname in CASES:
         dt, cdt = getattr(torch, dname), getattr(torch, cname)
         cost = torch.rand((1, m, n), generator=gen, device="cuda",
@@ -85,7 +154,6 @@ def main() -> int:
                               "m": m, "n": n, "ms": ms, "bound_ms": bound,
                               "of_bound": bound / ms}), flush=True)
         del cost
-    return 0
 
 
 if __name__ == "__main__":
