@@ -17,8 +17,10 @@ result line:
    columns, an all-masked leading block of columns, four lanes with four
    different ε, r = 64 and a ragged N; B5 also at Runs D and E's shapes
    (10⁵ rows at r = 8, 16, 32; 8192 rows at r = 16) and twice on the same
-   inputs, which must give the same bits.  Each line prints the measured
-   difference beside its tolerance and the reason for it.
+   inputs, which must give the same bits; B3 also at Runs E and B's
+   shapes (8192 × 16 and 64 × 262144, f64) and twice on the same inputs.
+   Each line prints the measured difference beside its tolerance and the
+   reason for it.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
    of the FGC kernels against the dense oracle, Run A (``Grid1D(8192)``,
    the paper's §4.1 settings, f32 and f64), Run B (``Grid2D(64)``, f64,
@@ -29,14 +31,14 @@ result line:
    clouds, f64, growing the rank by restarts) and Run E
    (``Grid1D(8192)``, rank 16, f64), each against the plain path on the
    card.  The launch counts are set to 0 just before each path and read
-   just after.  One more Run C f64 solve runs under ``torch.profiler``
-   (CPU and CUDA): the device's busy share over it and the device time of
-   its top kernels.
+   just after.  One more Run A f32, Run B and Run C f64 solve each runs
+   under ``torch.profiler`` (CPU and CUDA): the device's busy share over it
+   and the device time of its top kernels.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
-   Run B's (64, 262144), and B5 in f64 at Runs C, D and E's shapes, with
-   L2 warm and flushed.
+   Run B's (64, 262144), at Run E's (8192, 16) and at p = 2 on (8192, 1),
+   and B5 in f64 at Runs C, D and E's shapes, with L2 warm and flushed.
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -309,6 +312,24 @@ def phase_kernels(torch, ops, sk, fs, gen):
                          f"B3 dtilde {tag} x{N_BIG}x{cols} p={p}", errs)
                 fgc_case(torch, ops, fs, "l", x, p,
                          f"B4 L {tag} x{N_BIG}x{cols} p={p}", errs)
+    # B3 at Run E's D_X Q apply (8192, 16) and at Run B's (64, 262144), f64
+    for rows, cols in ((N_BIG, 16), (64, 64 * N_RUN_B)):
+        x = torch.randn((rows, cols), generator=gen, device=dev,
+                        dtype=torch.float64)
+        for p in (1, 2):
+            fgc_case(torch, ops, fs, "dtilde", x, p,
+                     f"B3 dtilde f64 x{rows}x{cols} p={p}", errs)
+    # B3 sums in a fixed order: two launches on one input give equal bits
+    for rows, cols, dt in ((N_BIG, N_BIG, torch.float32),
+                           (N_BIG, 16, torch.float64),
+                           (N_BIG, 1, torch.float64),
+                           (64, 64 * N_RUN_B, torch.float64)):
+        x = torch.randn((rows, cols), generator=gen, device=dev, dtype=dt)
+        same = torch.equal(fs.apply_dtilde_cuda(x, 1),
+                           fs.apply_dtilde_cuda(x, 1))
+        say(f"  B3 dtilde {str(dt)[6:]} x{rows}x{cols} p=1: two launches "
+            f"give {'equal' if same else 'DIFFERENT'} bits")
+        check(same, f"B3 x{rows}x{cols}: two launches differ")
     return errs
 
 
@@ -642,6 +663,9 @@ def phase_main_path(torch, np, ops, core, gen):
             tols = (max(1e-4, 4 * rel32), max(1e-3, 4 * l1_32))
         compare_runs(torch, f"Run A {dt}", rk, rp, *tols)
         del rk, rp
+        if dt == "float32":
+            profile_solve(torch, f"Run A {dt}", lambda: core.entropic_gw(
+                grid, grid, mu, nu, cfg_k))
     del exact
 
     n2 = 64
@@ -661,6 +685,9 @@ def phase_main_path(torch, np, ops, core, gen):
             backend="cumsum", sinkhorn_backend="torch", **adaptive)))
     compare_runs(torch, "Run B float64", rk, rp, 1e-8, 1e-6)
     del rk, rp
+    profile_solve(torch, "Run B float64", lambda: core.entropic_gw(
+        grid2, grid2, mu, nu, core.GWConfig(
+            backend="kernel", sinkhorn_backend="auto", **adaptive)))
 
     # the FGC primitives a user calls directly, at the gradient's shape
     x = torch.rand((N_BIG, N_BIG), generator=gen, device="cuda",
@@ -749,11 +776,22 @@ def profile_solve(torch, label, fn):
         f" ({len(dev)} device activities)")
     rows = {}
     for e in dev:
-        key = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        key = kernel_label(e.name)
         t, c = rows.get(key, (0.0, 0))
         rows[key] = (t + e.time_range.end - e.time_range.start, c + 1)
-    for name, (t, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+    for name, (t, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]:
         say(f"    {t / 1e3:9.3f} ms device, {c:5d}×, {name}")
+
+
+def kernel_label(name: str) -> str:
+    """A device activity's name, cut to 90 characters; a longer PyTorch
+    kernel keeps its operation's names (copy, add, exp, ...), which its
+    template arguments bury past the cut."""
+    if len(name) <= 90:
+        return name
+    ops = dict.fromkeys(re.findall(
+        r"\w+_kernel_cuda|\w*Functor\w*|\w+_functor|\w+Ops?<\w+", name))
+    return name[:60] + "... " + ",".join(list(ops)[:3])
 
 
 def up(core, c):
@@ -1039,6 +1077,20 @@ def phase_times(torch, ops, sk, fs, gen):
         rows[key] = (ms, pms, b, by)
         say(f"  {key} (Run B's shape): {ms:.5f} ms, bound {b:.5f} ms "
             f"({by}), {b / ms:.1%} of bound; plain {pms:.5f} ms")
+    # B3 at Run E's D_X Q apply, and at p = 2 on the squared-distance shape
+    for cols, dt, p in ((16, torch.float64, 1), (1, torch.float32, 2),
+                        (1, torch.float64, 2)):
+        x = torch.randn((N_BIG, cols), generator=gen, device=dev, dtype=dt)
+        ms = time_ms(torch, lambda: ops.fgc_apply_dtilde(x, p), reps=20)
+        pms = time_ms(torch, lambda: fs.apply_dtilde_plain(x, p), reps=1,
+                      warmup=0)
+        name = str(dt).split(".")[-1]
+        b, by = bound_ms(2 * x.numel() * x.element_size(),
+                         2.0 * (p + 1) * (p + 2) * x.numel(), name)
+        key = f"B3 dtilde {name[:1]}{name[-2:]} x{N_BIG}x{cols} p={p}"
+        rows[key] = (ms, pms, b, by)
+        say(f"  {key}: {ms:.5f} ms, bound {b:.5f} ms ({by}), "
+            f"{b / ms:.1%} of bound; plain {pms:.5f} ms")
     return rows
 
 

@@ -12,9 +12,16 @@ recursion (eq. 3.9), a_{i+1} = P a_i + x_i·1 and y_i = a_i[p] with P the
 Pascal matrix; Lᵀ is the same recursion from the last row up.  The state is
 kept in float64 for float32 inputs too: the recursion's rounding error
 grows with N, and Hopper has f64 (the reference's TPU kernel does not).  The CUDA
-source is ``csrc/fgc_scan.cu`` (one thread per column, the state in
-registers; see its note).  What bounds it on the card is the bytes of x read
-plus y written.
+source is ``csrc/fgc_scan.cu``.  The D̃ kernel is a segmented scan: the rows
+are cut into power-of-two segments, each segment's states are composed
+from zero and carried across segments in a fixed order (a state shifted
+past S rows is P_S[r,s] = C(r,s)·S^{r−s}, the reference's block shift), and
+x is read twice and y written once (three CUDA launches: the segments'
+states, the carry, the apply; only the apply with a single segment); the L
+kernel walks each column in one thread.  What bounds both on the card is
+the bytes of x read plus y written.  The D̃ grid comes from `dtilde_plan`,
+a pure function of the shape, the dtype and the card's SM count (and its
+occupancy, asked of the runtime), so the CPU tests hold it.
 
 The plain versions run the same recursion in PyTorch ops, one row at a time
 (a Python loop over N): they are the CPU path, the ``"scan"`` backend of
@@ -25,11 +32,31 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 MAX_POWER = 8                 # the kernel's template range, 0..8
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
+#: B3's geometry (``csrc/fgc_scan.cu``): a thread takes `chunk` rows of
+#: one column (the first of DTILDE_CHUNKS, by dtype, that leaves at least
+#: DTILDE_MIN_BLOCKS_PER_SM items an SM, else the last), staged in a ring of
+#: DTILDE_SLOTS tiles in shared memory; a block holds a tile of up to
+#: DTILDE_COL_TILE columns × `groups` chunks (at most DTILDE_MAX_GROUPS, and
+#: DTILDE_THREADS threads), one segment of groups·chunk rows.  The carry
+#: gives each column's `lanes` threads DTILDE_LANE_SEGS segments each, or
+#: more when the lanes run out, in blocks of at most DTILDE_CARRY_THREADS
+#: threads.
+DTILDE_CHUNKS = {4: (32, 16), 8: (16,)}
+DTILDE_SLOTS = 3
+DTILDE_THREADS = 256
+DTILDE_MAX_GROUPS = 16
+DTILDE_COL_TILE = 32
+DTILDE_MIN_BLOCKS_PER_SM = 2
+DTILDE_LANE_SEGS = 4
+DTILDE_CARRY_THREADS = 256
+MAX_ROWS = 2 ** 31 - 1        # N and B are ints in the kernels
+MAX_BLOCKS = 2 ** 31 - 1      # a grid's x extent
 
 
 def pascal_matrix(p: int, dtype=torch.float32, device=None):
@@ -68,15 +95,125 @@ def apply_dtilde_plain(x, p: int = 1):
     return (lo.double() + torch.flip(ys[:, b:], (0,))).to(x.dtype)
 
 
-@functools.cache
-def _entry(name: str):
+class DtildePlan(NamedTuple):
+    """B3's launch: `segments` segments of seg_rows = groups·chunk rows; an
+    item is one segment of a tile of col_tile columns, for a block of
+    col_tile·groups threads, and state_blocks (pass 1) and `blocks` (pass
+    2) blocks walk the items; the carry launch gives each block carry_cols
+    columns × lanes threads, each lane lane_segs consecutive segments."""
+    chunk: int
+    seg_rows: int
+    col_tile: int
+    segments: int
+    groups: int
+    carry_cols: int
+    lanes: int
+    lane_segs: int
+    state_blocks: int
+    blocks: int
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
+                blocks_per_sm: int = DTILDE_MIN_BLOCKS_PER_SM,
+                state_blocks_per_sm: int | None = None) -> DtildePlan:
+    """B3's grid for an (N, B) x of `itemsize` bytes on a card of `sms`
+    SMs that holds `blocks_per_sm` blocks of pass 2 and
+    `state_blocks_per_sm` (default the same) of pass 1.  A tile is B's
+    width up to DTILDE_COL_TILE columns (a power of two); a block starts at
+    DTILDE_THREADS threads or DTILDE_MAX_GROUPS groups, has its groups
+    halved while half of them would still hold N (a short N is one
+    segment, no carry), then while there are fewer than
+    DTILDE_MIN_BLOCKS_PER_SM items an SM; the chunk is the first of the
+    dtype's DTILDE_CHUNKS that gets there.  Each pass's grid is one wave:
+    blocks_per_sm·sms blocks, or one an item where there are fewer."""
+    if not (1 <= n <= MAX_ROWS and 1 <= cols <= MAX_ROWS):
+        raise ValueError(f"B3 cannot take an x of ({n}, {cols})")
+    if itemsize not in DTILDE_CHUNKS:
+        raise ValueError(f"B3 takes x of 4 or 8 bytes, not {itemsize}")
+    if state_blocks_per_sm is None:
+        state_blocks_per_sm = blocks_per_sm
+    if sms < 1 or min(blocks_per_sm, state_blocks_per_sm) < 1:
+        raise ValueError(f"a card has at least one SM and one block an SM, "
+                         f"not {sms} and {blocks_per_sm}")
+    tc = min(DTILDE_COL_TILE, _pow2_at_least(cols))
+    tiles = -(-cols // tc)
+    want = DTILDE_MIN_BLOCKS_PER_SM * sms
+    for chunk in DTILDE_CHUNKS[itemsize]:
+        groups = min(DTILDE_MAX_GROUPS, DTILDE_THREADS // tc)
+        while groups > 1 and groups // 2 * chunk >= n:
+            groups //= 2
+        while groups > 1 and tiles * -(-n // (groups * chunk)) < want:
+            groups //= 2
+        if tiles * -(-n // (groups * chunk)) >= want:
+            break
+    seg_rows = groups * chunk
+    segments = -(-n // seg_rows)
+    if tiles * segments > MAX_BLOCKS:
+        raise ValueError(f"({n}, {cols}) needs {tiles * segments} blocks")
+    lanes = min(DTILDE_CARRY_THREADS,
+                _pow2_at_least(-(-segments // DTILDE_LANE_SEGS)))
+    lane_segs = _pow2_at_least(-(-segments // lanes))
+    carry_cols = min(DTILDE_CARRY_THREADS // lanes, _pow2_at_least(cols))
+    items = tiles * segments
+    return DtildePlan(chunk, seg_rows, tc, segments, groups, carry_cols,
+                      lanes, lane_segs, min(items, state_blocks_per_sm * sms),
+                      min(items, blocks_per_sm * sms))
+
+
+def dtilde_smem_bytes(p: int, itemsize: int, chunk: int,
+                      col_tile: int = DTILDE_COL_TILE,
+                      groups: int = DTILDE_THREADS // DTILDE_COL_TILE,
+                      apply: bool = True) -> int:
+    """Shared memory of a B3 pass block (the kernels' `pass_smem`): two
+    (p+1)-moment states a thread for the groups' fold, and DTILDE_SLOTS
+    slots of the tile (`chunk` elements a thread) and, in the apply pass,
+    of its carries (two states a column); the default is the largest
+    block.  The carry block's scan states are fewer."""
+    return col_tile * (2 * (p + 1) * 8 * (groups + (DTILDE_SLOTS if apply
+                                                    else 0))
+                       + DTILDE_SLOTS * chunk * itemsize * groups)
+
+
+def _library():
     from repro_torch.kernels import build
 
-    fn = getattr(build.library("fgc_scan"), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return build.library("fgc_scan")
+
+
+@functools.cache
+def _entry(name: str):
+    fn = getattr(_library(), name)
+    if "dtilde" in name:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + \
+            [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launch_plan(tag, n, cols, itemsize, p, device):
+    """B3's plan on `device`, one wave of the blocks its SMs hold (both
+    passes' occupancy, asked of the runtime once a shape; the call also
+    lets the passes take their shared memory)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = dtilde_plan(n, cols, itemsize, sms)
+    fn = getattr(_library(), f"fgc_dtilde_residency_{tag}")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    resident = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        rc = fn(p, plan.col_tile, plan.groups, plan.chunk, resident)
+    if rc != 0 or min(resident) < 1:
+        raise RuntimeError(f"fgc_dtilde_residency_{tag}: CUDA error {rc}, "
+                           f"{list(resident)} blocks an SM")
+    return dtilde_plan(n, cols, itemsize, sms, resident[1], resident[0])
 
 
 def _launch(kind: str, x, p: int):
@@ -98,7 +235,18 @@ def _launch(kind: str, x, p: int):
     fn = _entry(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), n, b, p, stream)
+        if kind == "l":
+            rc = fn(x.data_ptr(), y.data_ptr(), n, b, p, stream)
+        else:
+            plan = _launch_plan(_DTYPE_TAG[x.dtype], n, b,
+                                x.element_size(), p, x.device)
+            carry = torch.empty(
+                (plan.segments * 2 * (p + 1) * b if plan.segments > 1
+                 else 0,), dtype=torch.float64, device=x.device)
+            rc = fn(x.data_ptr(), y.data_ptr(), carry.data_ptr(), n, b, p,
+                    plan.chunk, plan.col_tile, plan.groups, plan.segments,
+                    plan.carry_cols, plan.lanes, plan.lane_segs,
+                    plan.state_blocks, plan.blocks, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return y
@@ -110,5 +258,7 @@ def apply_l_cuda(x, p: int = 1):
 
 
 def apply_dtilde_cuda(x, p: int = 1):
-    """Launch the fused D̃ kernel on a contiguous CUDA (N, B) x."""
+    """Launch the fused D̃ kernel on a contiguous CUDA (N, B) x: one call,
+    up to three CUDA launches (states, carry, apply; only the apply with a
+    single segment), with carry scratch from ``torch.empty``."""
     return _launch("dtilde", x, p)

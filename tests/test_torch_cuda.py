@@ -204,9 +204,15 @@ def test_half_step_alignment_changes_no_bit(dev, tag, kind):
     assert torch.equal(got, want)
 
 
+# (255, 9000) and (257, 9000) straddle a segment boundary of B3's plan on a
+# 132-SM card (tests/test_torch_kernels.py holds that); (8192, 1) and
+# (8192, 16) are the squared-distance and D_X Q applies of the factored
+# gradient on a grid, (64, 4099) a short N of several segments.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,b", [(1, 1), (3, 7), (200, 130), (513, 1)])
-@pytest.mark.parametrize("p", [0, 1, 2, 3])
+@pytest.mark.parametrize("n,b", [(1, 1), (3, 7), (200, 130), (513, 1),
+                                 (255, 9000), (257, 9000), (8192, 1),
+                                 (8192, 16), (64, 4099)])
+@pytest.mark.parametrize("p", [0, 1, 2, 3, 8])
 @pytest.mark.parametrize("kind", ["l", "dtilde"])
 def test_fgc_matches_plain(dev, dtype, n, b, p, kind):
     x = torch.randn((n, b), generator=_gen(n + b), device=dev, dtype=dtype)
@@ -217,6 +223,55 @@ def test_fgc_matches_plain(dev, dtype, n, b, p, kind):
     u = torch.finfo(dtype).eps / 2
     assert ((got - want).abs().double()
             <= 2 * (p + 2) * n * u * scale).all()
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_fgc_dtilde_many_segments(dev, p):
+    """300 000 rows of one f64 column: over a thousand segments, so each
+    carry lane folds its segments in more than one batch."""
+    n, dtype = 300_000, torch.float64
+    plan = fgc_scan.dtilde_plan(n, 1, 8, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.lane_segs > 4
+    x = torch.randn((n, 1), generator=_gen(7), device=dev, dtype=dtype)
+    got = fgc_scan.apply_dtilde_cuda(x, p)
+    want = fgc_scan.apply_dtilde_plain(x, p)
+    scale = fgc_scan.apply_dtilde_plain(x.abs().double(), p)
+    u = torch.finfo(dtype).eps / 2
+    assert ((got - want).abs().double()
+            <= 2 * (p + 2) * n * u * scale).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,b", [(8192, 1), (8192, 16), (64, 4099),
+                                 (1000, 130), (257, 9000)])
+@pytest.mark.parametrize("p", [1, 2])
+def test_fgc_dtilde_bitwise_repeatable(dev, dtype, n, b, p):
+    """B3 sums in a fixed order without float atomics: two launches on the
+    same input give the same bits."""
+    x = torch.randn((n, b), generator=_gen(n * b), device=dev, dtype=dtype)
+    first = fgc_scan.apply_dtilde_cuda(x, p)
+    second = fgc_scan.apply_dtilde_cuda(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,b", [(8192, 1), (8192, 16), (301, 129),
+                                 (64, 4099)])
+def test_fgc_dtilde_alignment_changes_no_bit(dev, dtype, n, b):
+    """An x one element off a 16-byte boundary gives the bits of an aligned
+    copy: every element is loaded on its own, in the same order of sums."""
+    x = torch.randn((n, b), generator=_gen(n + 3 * b), device=dev,
+                    dtype=dtype)
+    flat = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = fgc_scan.apply_dtilde_cuda(shifted, 2)
+    want = fgc_scan.apply_dtilde_cuda(x, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_wrappers_count_launches(dev):

@@ -1,6 +1,8 @@
 """The port's kernel modules on the CPU: the plain versions of B1–B4 against
 the reference's Pallas kernels (interpret mode), and the wrappers' CPU
 dispatch.  Inputs are made with numpy from a seed and handed to both."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -284,6 +286,210 @@ def test_dykstra_smem_within_the_limit(r, itemsize, dual_bytes):
 def test_dykstra_plan_refuses(lanes, n, r, itemsize, what):
     with pytest.raises(ValueError, match=what):
         lr_step.dykstra_plan(lanes, n, r, itemsize, 132)
+
+
+# B3's five target shapes (Runs A, B and E; the squared-distance applies)
+_DT_TARGETS = [(8192, 8192), (64, 262144), (8192, 16), (8192, 1)]
+_DT_SHAPES = _DT_TARGETS + [(1, 1), (15, 3), (17, 1), (255, 9000),
+                            (257, 9000), (64, 4099), (1000, 130),
+                            (100_003, 7), (2 ** 31 - 1, 1), (3, 2 ** 20)]
+
+
+def _dt_valid(plan, n, cols):
+    tiles = -(-cols // plan.col_tile)
+    return (plan.seg_rows == plan.groups * plan.chunk
+            and (plan.segments - 1) * plan.seg_rows < n
+            <= plan.segments * plan.seg_rows
+            and (tiles - 1) * plan.col_tile < cols <= tiles * plan.col_tile
+            and plan.col_tile * plan.groups <= fgc_scan.DTILDE_THREADS
+            and plan.groups <= fgc_scan.DTILDE_MAX_GROUPS
+            and plan.carry_cols * plan.lanes <= fgc_scan.DTILDE_CARRY_THREADS
+            and plan.segments <= plan.lanes * plan.lane_segs
+            and (plan.lane_segs == 1
+                 or plan.lanes * (plan.lane_segs // 2) < plan.segments)
+            and all(v & (v - 1) == 0 for v in (
+                plan.seg_rows, plan.col_tile, plan.groups, plan.carry_cols,
+                plan.lanes, plan.lane_segs))
+            and tiles * plan.segments <= fgc_scan.MAX_BLOCKS
+            and 1 <= plan.blocks <= tiles * plan.segments
+            and 1 <= plan.state_blocks <= tiles * plan.segments)
+
+
+@pytest.mark.parametrize("n,cols", _DT_SHAPES)
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dtilde_plan_covers_rows(n, cols, itemsize, sms):
+    """B3's plan: the segments cover the N rows and the tiles the B columns,
+    each once (none empty); power-of-two segments, tiles, groups and lanes
+    within a block's 256 threads and 16 groups; the carry's lanes cover the
+    segments,
+    each lane as few as the lanes allow."""
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, sms)
+    assert _dt_valid(plan, n, cols)
+
+
+@pytest.mark.parametrize("n,cols", _DT_TARGETS)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dtilde_plan_fills_the_card(n, cols, itemsize):
+    """At the target shapes the grid holds at least two blocks on each of a
+    132-SM card's SMs, and one wave of what the card holds where the items
+    allow; Run B's 64 rows are one segment (no carry)."""
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132)
+    assert -(-cols // plan.col_tile) * plan.segments >= 2 * 132
+    assert plan.blocks == plan.state_blocks == 2 * 132
+    items = -(-cols // plan.col_tile) * plan.segments
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132, 3, 4)
+    assert (plan.blocks, plan.state_blocks) == (min(items, 3 * 132),
+                                                min(items, 4 * 132))
+    if n == 64:
+        assert plan.segments == 1
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dtilde_plan_boundary_shapes(itemsize):
+    """The cuda tests' (255, 9000) and (257, 9000) straddle a segment
+    boundary (row 256) on a 132-SM card; (64, 4099) has several segments."""
+    below, above = (fgc_scan.dtilde_plan(n, 9000, itemsize, 132)
+                    for n in (255, 257))
+    assert below.seg_rows == above.seg_rows and 256 % above.seg_rows == 0
+    assert above.segments == 256 // above.seg_rows + 1 == below.segments + 1
+    assert fgc_scan.dtilde_plan(64, 4099, itemsize, 132).segments > 1
+
+
+@pytest.mark.parametrize("p", range(fgc_scan.MAX_POWER + 1))
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dtilde_smem_within_the_limit(p, itemsize):
+    """A B3 pass block's shared memory stays within what an H100 block can
+    opt in to (227 KB) at every chunk of the dtype, and at p <= 2 with
+    16-row chunks within half of it (two blocks an SM); the default is the
+    largest block of any plan."""
+    for chunk in fgc_scan.DTILDE_CHUNKS[itemsize]:
+        big = fgc_scan.dtilde_smem_bytes(p, itemsize, chunk)
+        assert big <= 232_448
+        if p <= 2 and chunk == 16:
+            assert 2 * big <= 232_448
+        for tc in (1, 2, 4, 8, 16, 32):
+            for groups in (1, 2, 4, 8, 16):
+                if tc * groups <= fgc_scan.DTILDE_THREADS:
+                    for apply in (False, True):
+                        assert fgc_scan.dtilde_smem_bytes(
+                            p, itemsize, chunk, tc, groups, apply) <= big
+
+
+@pytest.mark.parametrize("n,cols,itemsize,sms,what", [
+    (0, 4, 8, 132, "cannot take"), (4, 0, 8, 132, "cannot take"),
+    (2 ** 31, 1, 8, 132, "cannot take"), (4, 4, 2, 132, "bytes"),
+    (4, 4, 8, 0, "SM"), (2 ** 31 - 1, 2 ** 31 - 1, 4, 132, "blocks")])
+def test_dtilde_plan_refuses(n, cols, itemsize, sms, what):
+    with pytest.raises(ValueError, match=what):
+        fgc_scan.dtilde_plan(n, cols, itemsize, sms)
+
+
+def _shift(p, rows):
+    """P_rows[r, s] = C(r, s)·rows^(r−s): a state shifted past `rows`
+    rows."""
+    return torch.tensor([[math.comb(r, s) * float(rows) ** (r - s)
+                          if s <= r else 0.0 for s in range(p + 1)]
+                         for r in range(p + 1)], dtype=torch.float64)
+
+
+def _group_scan(f, m, shift_of):
+    """The kernels' Hillis-Steele scans over dim 0 of (G, ·, p+1, B)
+    states: f inclusive from the first group, m from the last; at distance
+    d the partner is shifted by shift_of(d)."""
+    g, d = f.shape[0], 1
+    while d < g:
+        sh = shift_of(d)
+        f, m = f.clone(), m.clone()
+        f[d:] = torch.einsum("rs,g...sb->g...rb", sh, f[:-d].clone()) + f[d:]
+        m[:-d] = torch.einsum("rs,g...sb->g...rb", sh, m[d:].clone()) + \
+            m[:-d]
+        d *= 2
+    return f, m
+
+
+def _segmented_dtilde(x, p, plan):
+    """B3's algebra in plain f64 PyTorch: chunk states, the in-block scans,
+    the carry lanes, then the two streams from each chunk's start states."""
+    n, b = x.shape
+    ch, g, k = plan.chunk, plan.groups, plan.segments
+    pasc = fgc_scan.pascal_matrix(p, torch.float64)
+    xs = torch.zeros((k * plan.seg_rows, b), dtype=torch.float64)
+    xs[:n] = x.double()
+    xs = xs.reshape(k, g, ch, b).permute(1, 0, 2, 3)     # (G, K, CHUNK, B)
+
+    def absorb(a, row):
+        return torch.einsum("rs,...sb->...rb", pasc, a) + row[..., None, :]
+
+    f = m = torch.zeros((g, k, p + 1, b), dtype=torch.float64)
+    for j in range(ch):
+        f = absorb(f, xs[:, :, j])
+        m = absorb(m, xs[:, :, ch - 1 - j])
+    # pass 1: each segment's totals
+    fi, mi = _group_scan(f, m, lambda d: _shift(p, d * ch))
+    tot_f, tot_m = fi[-1], mi[0]                          # (K, p+1, B)
+    # carry: lanes of lane_segs segments, zero states past the end
+    lanes, q = plan.lanes, plan.lane_segs
+    pad = torch.zeros((lanes * q - k, p + 1, b), dtype=torch.float64)
+    a_ = torch.cat([tot_f, pad]).reshape(lanes, q, p + 1, b)
+    b_ = torch.cat([tot_m, pad]).reshape(lanes, q, p + 1, b)
+    ps = _shift(p, plan.seg_rows)
+    u = w = torch.zeros((lanes, p + 1, b), dtype=torch.float64)
+    for j in range(q):
+        u = torch.einsum("rs,lsb->lrb", ps, u) + a_[:, j]
+        w = torch.einsum("rs,lsb->lrb", ps, w) + b_[:, q - 1 - j]
+    ui, wi = _group_scan(u, w, lambda d: _shift(p, d * plan.seg_rows * q))
+    zero = torch.zeros((1, p + 1, b), dtype=torch.float64)
+    e, ew = torch.cat([zero, ui[:-1]]), torch.cat([wi[1:], zero])
+    cf, cm = torch.empty_like(a_), torch.empty_like(b_)
+    for j in range(q):
+        cf[:, j] = e
+        e = torch.einsum("rs,lsb->lrb", ps, e) + a_[:, j]
+        cm[:, q - 1 - j] = ew
+        ew = torch.einsum("rs,lsb->lrb", ps, ew) + b_[:, q - 1 - j]
+    cf = cf.reshape(-1, p + 1, b)[:k]
+    cm = cm.reshape(-1, p + 1, b)[:k]
+    # pass 2: seed the first and last groups, scan, take the neighbours'
+    pr = _shift(p, ch)
+    f, m = f.clone(), m.clone()
+    f[0] = torch.einsum("rs,ksb->krb", pr, cf) + f[0]
+    m[-1] = torch.einsum("rs,ksb->krb", pr, cm) + m[-1]
+    fi, mi = _group_scan(f, m, lambda d: _shift(p, d * ch))
+    a = torch.cat([cf[None], fi[:-1]])
+    bm = torch.cat([mi[1:], cm[None]])
+    lo = torch.empty((g, k, ch, b), dtype=torch.float64)
+    hi = torch.empty_like(lo)
+    for j in range(ch):
+        hi[:, :, ch - 1 - j] = bm[:, :, p]
+        bm = absorb(bm, xs[:, :, ch - 1 - j])
+        lo[:, :, j] = a[:, :, p]
+        a = absorb(a, xs[:, :, j])
+    y = (lo.to(x.dtype).double() + hi).permute(1, 0, 2, 3)
+    return y.reshape(-1, b)[:n].to(x.dtype)
+
+
+@pytest.mark.parametrize("n,b,sms", [(1, 1, 1), (17, 1, 1), (48, 2, 4),
+                                     (257, 3, 4), (300, 3, 4),
+                                     (511, 1, 64), (513, 5, 8),
+                                     (700, 1, 1), (2000, 40, 1),
+                                     (1000, 1, 132)])
+@pytest.mark.parametrize("p", range(fgc_scan.MAX_POWER + 1))
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dtilde_carry_algebra_matches_plain(n, b, sms, p, itemsize):
+    """The segmented scan's algebra (each dtype's plan and chunk, chunk
+    states, the fold over groups, carry lanes) in f64 equals the plain
+    recursion within its recursive-sum bound, across segment boundaries and
+    for every p.  This holds the plan and the algebra; the kernel itself is
+    held on the card."""
+    x = _t(RNG.normal(size=(n, b)))
+    plan = fgc_scan.dtilde_plan(n, b, itemsize, sms)
+    got = _segmented_dtilde(x, p, plan)
+    want = fgc_scan.apply_dtilde_plain(x, p)
+    scale = fgc_scan.apply_dtilde_plain(x.abs(), p)
+    u = torch.finfo(torch.float64).eps / 2
+    assert ((got - want).abs() <= 2 * (p + 2) * n * u * scale).all()
+    if n > 64:
+        assert plan.segments > 1
 
 
 @pytest.mark.parametrize("mangled,want", [

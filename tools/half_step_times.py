@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Time the Sinkhorn half-step kernels (B1 row, B2 column) and the Dykstra
-half-sweep (B5) of one source tree on one NVIDIA card.
+"""Time the Sinkhorn half-step kernels (B1 row, B2 column), the fused FGC
+D̃ apply (B3) and the Dykstra half-sweep (B5) of one source tree on one
+NVIDIA card.
 
     python3 tools/half_step_times.py [--src DIR] [--reps 50] [--only KIND]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``), builds
 its kernels, and times each kernel with CUDA events at the main path's
-shapes: the half-steps at 8192 × 8192 in f32, f64 and bf16 C under f32
-duals (Run A), 4096 × 4096 in f64 (Run B), and 8192 × 8191 in f32 (rows
-that are not 16-byte aligned); B5 at N = 10⁶, r = 16 in f32, f64 and bf16
-lk under f32 duals (Run C), N = 10⁵ at r = 8, 16, 32 in f64 (Run D) and
-N = 8192, r = 16 in f64 (Run E).  B5 is timed twice: back to back on the
-same lk ("warm": at 10⁵ and 8192 rows lk stays in the 50 MB L2), and
-each launch after a 64 MB write that flushes L2 ("cold", an event pair
-around each launch).  Before each timed stretch the card sleeps while the
-host enqueues it, so the events time the kernels, not the host's issue;
-the host's own time a call is printed beside them ("host_ms").  Inputs come from a fixed seed, so two trees see the
-same data.  Prints the card, then one JSON line a case with the time, the
-bytes bound (the inputs read once, the outputs written once) and the share
-of it reached.  To compare two trees, run it on each in turns (A, B, B, A)
-in one session on one card.
+shapes: the half-steps at 8192 × 8192 in f32, f64 and bf16 C under f32 duals
+(Run A), 4096 × 4096 in f64 (Run B), and 8192 × 8191 in f32 (rows that are
+not 16-byte aligned); B5 at N = 10⁶, r = 16 in f32, f64 and bf16 lk under
+f32 duals (Run C), N = 10⁵ at r = 8, 16, 32 in f64 (Run D) and N = 8192, r =
+16 in f64 (Run E); B3 (p = 1 unless stated) on x of 8192 × 8192 in f32 and
+f64 (Run A's gradient), 64 × 262144 in f64 at p = 1 and 2 (Run B's), 8192 ×
+16 in f64 (Run E's D_X Q) and 8192 × 1 in f32 and f64 at p = 1 and 2 (the
+squared-distance applies). B5 is timed twice: back to back on the same lk
+("warm": at 10⁵ and 8192 rows lk stays in the 50 MB L2), and each launch
+after a 64 MB write that flushes L2 ("cold", an event pair around each
+launch). Before each timed stretch the card sleeps while the host enqueues
+it, so the events time the kernels, not the host's issue; the host's own
+time a call is printed beside them ("host_ms"). Inputs come from a fixed
+seed, so two trees see the same data. Prints the card, then one JSON line a
+case with the time, the bytes bound (the inputs read once, the outputs
+written once) and the share of it reached. To compare two trees, run it on
+each in turns (A, B, B, A) in one session on one card.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM, NVIDIA data sheet
 SEED = 20240413
 SLEEP_CYCLES = 20_000_000              # ~10 ms at the H100's 1.98 GHz
+FGC_CASES = (("f32", 8192, 8192, 1), ("f64", 8192, 8192, 1),
+             ("f64", 64, 262144, 1), ("f64", 64, 262144, 2),
+             ("f64", 8192, 16, 1), ("f32", 8192, 1, 1), ("f64", 8192, 1, 1),
+             ("f32", 8192, 1, 2), ("f64", 8192, 1, 2))
 LR_CASES = (("f32", 10 ** 6, 16, "float32", "float32"),
             ("f64", 10 ** 6, 16, "float64", "float64"),
             ("bf16-lk/f32", 10 ** 6, 16, "float32", "bfloat16"),
@@ -53,7 +61,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--only", choices=("half", "dykstra"))
+    ap.add_argument("--only", choices=("half", "dykstra", "fgc"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -70,11 +78,37 @@ def main() -> int:
     gen.manual_seed(SEED)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if args.only != "dykstra":
+    if args.only in (None, "half"):
         half_steps(torch, ops, gen, start, end, args)
-    if args.only != "half":
+    if args.only in (None, "fgc"):
+        fgc(torch, ops, gen, start, end, args)
+    if args.only in (None, "dykstra"):
         dykstra(torch, ops, gen, start, end, args)
     return 0
+
+
+def fgc(torch, ops, gen, start, end, args):
+    for tag, n, cols, p in FGC_CASES:
+        dt = torch.float32 if tag == "f32" else torch.float64
+        x = torch.randn((n, cols), generator=gen, device="cuda", dtype=dt)
+        # x read once and y written once
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        ops.fgc_apply_dtilde(x, p)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            ops.fgc_apply_dtilde(x, p)
+        host = (time.perf_counter() - t0) / args.reps * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / args.reps
+        print(json.dumps({"src": args.src, "kernel": "dtilde", "dtype": tag,
+                          "n": n, "cols": cols, "p": p, "ms": ms,
+                          "host_ms": host, "bound_ms": bound,
+                          "of_bound": bound / ms}), flush=True)
+        del x
 
 
 def dykstra(torch, ops, gen, start, end, args):
