@@ -17,8 +17,10 @@ result line:
    columns, an all-masked leading block of columns, four lanes with four
    different ε, r = 64 and a ragged N; B5 also at Runs D and E's shapes
    (10⁵ rows at r = 8, 16, 32; 8192 rows at r = 16) and twice on the same
-   inputs, which must give the same bits; B3 also at Runs E and B's
-   shapes (8192 × 16 and 64 × 262144, f64) and twice on the same inputs.
+   inputs, which must give the same bits; B6/B7 also at Run D's shapes, on
+   the exact factors of a point cloud shifted off the origin (B6, f32 and
+   f64) and twice on the same inputs; B3 also at Runs E and B's shapes
+   (8192 × 16 and 64 × 262144, f64) and twice on the same inputs.
    Each line prints the measured difference beside its tolerance and the
    reason for it.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
@@ -33,12 +35,14 @@ result line:
    card.  The launch counts are set to 0 just before each path and read
    just after.  One more Run A f32, Run B and Run C f64 solve each runs
    under ``torch.profiler`` (CPU and CUDA): the device's busy share over it
-   and the device time of its top kernels.
+   and the device time of its top kernels; for Run C, also B6's and B7's
+   kernels by name, B6 one device launch a call.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
    Run B's (64, 262144), at Run E's (8192, 16) and at p = 2 on (8192, 1),
-   and B5 in f64 at Runs C, D and E's shapes, with L2 warm and flushed.
+   and B5–B7 in f64 at Runs C and D's shapes (B5 also at E's), with L2
+   warm and flushed.
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -488,6 +492,14 @@ def lr_inputs(torch, gen, n, c, r, dt):
     return a, b, q, w
 
 
+def combine_inputs(torch, gen, c, r, dt):
+    """B7's small operands: W (1, c, r), s, t, iq (1, r)."""
+    wm = torch.randn((1, c, r), generator=gen, device="cuda", dtype=dt)
+    s_, t_, iq = (torch.randn((1, r), generator=gen, device="cuda",
+                              dtype=dt) for _ in range(3))
+    return wm, s_, t_, iq
+
+
 def phase_lowrank_kernels(torch, ops, lr, gen):
     say("  factored-plan kernels (B5–B7):")
     dev = "cuda"
@@ -507,14 +519,12 @@ def phase_lowrank_kernels(torch, ops, lr, gen):
         del lk
         a, b, q, w = lr_inputs(torch, gen, n, C_LR, r, dt)
         gram_case(torch, ops, lr, a, b, q, w, f"B6 {shape}", errs)
-        wm = torch.randn((1, C_LR, r), generator=gen, device=dev, dtype=dt)
-        s_, t_, iq = (torch.randn((1, r), generator=gen, device=dev,
-                                  dtype=dt) for _ in range(3))
+        wm, s_, t_, iq = combine_inputs(torch, gen, C_LR, r, dt)
         combine_case(torch, ops, lr, a, wm, w, s_, t_, iq, f"B7 {shape}",
                      errs)
         del a, b, q, w
     # Runs D and E's shapes: 10⁵ rows at the ranks Run D grows through,
-    # and Run E's 8192 rows at rank 16, in f64
+    # and Run E's 8192 rows at rank 16, in f64 (B6/B7 at D's: E is a grid)
     for n, r in ((100_000, 8), (100_000, 16), (100_000, 32), (N_BIG, 16)):
         lk = torch.randn((1, n, r), generator=gen, device=dev,
                          dtype=torch.float64)
@@ -524,21 +534,52 @@ def phase_lowrank_kernels(torch, ops, lr, gen):
                           dtype=torch.float64)
         dykstra_case(torch, ops, lr, lk, gcol, logw, f"B5 N{n} r{r} f64",
                      errs)
+        if n == N_BIG:
+            continue
+        a, b, q, w = lr_inputs(torch, gen, n, C_LR, r, torch.float64)
+        gram_case(torch, ops, lr, a, b, q, w, f"B6 N{n} c{C_LR} r{r} f64",
+                  errs)
+        wm, s_, t_, iq = combine_inputs(torch, gen, C_LR, r, torch.float64)
+        combine_case(torch, ops, lr, a, wm, w, s_, t_, iq,
+                     f"B7 N{n} c{C_LR} r{r} f64", errs)
+    # B6 on the exact squared-Euclidean factors of 3-D Gaussian points
+    # shifted by +5 (not centred): the Gram's c-long dot cancels, where the
+    # one-pass association differs most from the plain version's
+    for dt in (torch.float32, torch.float64):
+        x = torch.randn((1, N_LR, 3), generator=gen, device=dev,
+                        dtype=torch.float64) + 5.0
+        sq = (x ** 2).sum(-1, keepdim=True)
+        one = torch.ones_like(sq)
+        a = torch.cat([sq, one, -2 * x], -1).to(dt)
+        b = torch.cat([one, sq, x], -1).to(dt)
+        q = torch.rand((1, N_LR, R_LR), generator=gen, device=dev,
+                       dtype=dt) / N_LR
+        w = torch.rand((1, N_LR), generator=gen, device=dev, dtype=dt)
+        gram_case(torch, ops, lr, a, b, q, w, f"B6 N{N_LR} c{C_LR} r{R_LR} "
+                  f"{str(dt)[6:]} shifted cloud", errs)
+        del x, sq, one, a, b, q, w
     # two launches on the same inputs give the same bits (the blocks'
-    # partials merge in block order after an integer ticket)
+    # partials merge in a fixed order behind integer tickets)
     for dt in (torch.float32, torch.float64):
         lk = torch.randn((1, N_LR, R_LR), generator=gen, device=dev,
                          dtype=dt)
         gcol = torch.randn((1, R_LR), generator=gen, device=dev, dtype=dt)
         logw = torch.full((1, N_LR), -math.log(N_LR), device=dev, dtype=dt)
-        first = lr.dykstra_half_cuda(lk, gcol, logw)
-        second = lr.dykstra_half_cuda(lk, gcol, logw)
-        torch.cuda.synchronize()
-        same = all(bool(torch.equal(x, y)) for x, y in zip(first, second))
-        say(f"  B5 N{N_LR} r{R_LR} {str(dt)[6:]}: two launches "
-            f"{'give the same bits' if same else 'DIFFER'}")
-        check(same, "B5: two launches on the same inputs differ")
-        del lk
+        a, b, q, w = lr_inputs(torch, gen, N_LR, C_LR, R_LR, dt)
+        wm, s_, t_, iq = combine_inputs(torch, gen, C_LR, R_LR, dt)
+        for name, fn in (
+                ("B5", lambda: lr.dykstra_half_cuda(lk, gcol, logw)),
+                ("B6", lambda: lr.gram_chain_cuda(a, b, q, w)),
+                ("B7", lambda: (lr.grad_combine_cuda(a, wm, w, s_, t_,
+                                                     iq),))):
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(x, y))
+                       for x, y in zip(first, second))
+            say(f"  {name} N{N_LR} r{R_LR} {str(dt)[6:]}: two launches "
+                f"{'give the same bits' if same else 'DIFFER'}")
+            check(same, f"{name}: two launches on the same inputs differ")
+        del lk, a, b, q, w
     # zero mass: −inf log-mass and −inf kernel rows, and a column whose
     # kernel entries are all −inf (its column LSE is −inf)
     n, r, dt = N_RAGGED, R_LR, torch.float64
@@ -740,12 +781,14 @@ def compare_lowrank(torch, label, rk, rp, value_rtol, l1_tol):
           f"{label}: factors differ by {l1:.3e}")
 
 
-def profile_solve(torch, label, fn):
+def profile_solve(torch, label, fn, watch=()):
     """One more solve under torch.profiler (CPU and CUDA activities): the
     device's busy share over the solve's window (the union of the device
     activities' intervals over the span of all the trace's events) and the
-    device time of the top kernels by name.  The profiler slows the host,
-    so the share is a lower bound of the unprofiled run's."""
+    device time of the top kernels by name, and of every kernel whose name
+    holds one of `watch`.  The profiler slows the host, so the share is a
+    lower bound of the unprofiled run's.  Returns {name: (device µs,
+    count)}, or None when the profiler recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -759,7 +802,7 @@ def profile_solve(torch, label, fn):
         say(f"  {label} profiled: device busy share not measured (the "
             f"profiler recorded no device events); kernel sums by CUDA "
             f"events in phase 4")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -779,8 +822,11 @@ def profile_solve(torch, label, fn):
         key = kernel_label(e.name)
         t, c = rows.get(key, (0.0, 0))
         rows[key] = (t + e.time_range.end - e.time_range.start, c + 1)
-    for name, (t, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]:
-        say(f"    {t / 1e3:9.3f} ms device, {c:5d}×, {name}")
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (t, c)) in enumerate(ranked):
+        if i < 12 or any(w in name for w in watch):
+            say(f"    {t / 1e3:9.3f} ms device, {c:5d}×, {name}")
+    return rows
 
 
 def kernel_label(name: str) -> str:
@@ -931,8 +977,19 @@ def phase_lowrank_path(torch, np, ops, core):
         check_lr_launches(f"Run C {tag}", counts, rk.info, True)
         check(rk.coupling.q.dtype == dt, "Run C: dtype changed")
         if dt == torch.float64:
-            profile_solve(torch, f"Run C {tag}",
-                          lambda: core.entropic_gw(gx, gy, mu, mu, cfg))
+            before = ops.LAUNCHES["lr_gram_chain"]
+            rows = profile_solve(torch, f"Run C {tag}",
+                                 lambda: core.entropic_gw(gx, gy, mu, mu, cfg),
+                                 watch=("gram", "combine", "sum_blocks"))
+            calls = ops.LAUNCHES["lr_gram_chain"] - before
+            if rows is not None:
+                b6 = {k: c for k, (_, c) in rows.items()
+                      if "gram" in k or "sum_blocks" in k}
+                say(f"  Run C {tag} profiled: {calls} B6 calls, device "
+                    f"launches {b6}")
+                check(sum(b6.values()) == calls and
+                      all("gram_chain" in k for k in b6),
+                      "Run C: B6 is not one device launch a call")
         rp, _, walls[f"C {tag} plain"] = run_path(
             torch, ops, f"Run C clouds {N_LR}x3 rank {R_LR} {tag} plain",
             lambda: core.entropic_gw(gx, gy, mu, mu, dataclasses.replace(
@@ -1098,8 +1155,8 @@ def lowrank_times(torch, ops, lr, gen):
     """B5–B7 at Run C's shapes (N = 10⁶, c = 5, r = 16).  Bounds count each
     input read once and each output written once; operations: B5 about
     10 a kernel entry (two LSE passes: add, max, subtract, exp, sum), B6
-    2·N·r·(2c + 2 + r) (BᵀQ with Qᵀ1 and Qᵀw, then A·bq and Qᵀ·U), B7
-    N·r·(2c + 6)."""
+    2·N·r·(2c + 2) + 2·c·r² (XᵀQ for X = [B | A | 1 | w], then the
+    (r, c)·(c, r) Gram), B7 N·r·(2c + 6)."""
     rows = {}
     n, c, r = N_LR, C_LR, R_LR
     for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
@@ -1109,9 +1166,7 @@ def lowrank_times(torch, ops, lr, gen):
         gcol = torch.randn((1, r), generator=gen, device="cuda", dtype=dt)
         logw = torch.full((1, n), -math.log(n), device="cuda", dtype=dt)
         a, b, q, w = lr_inputs(torch, gen, n, c, r, dt)
-        wm = torch.randn((1, c, r), generator=gen, device="cuda", dtype=dt)
-        s_, t_, iq = (torch.randn((1, r), generator=gen, device="cuda",
-                                  dtype=dt) for _ in range(3))
+        wm, s_, t_, iq = combine_inputs(torch, gen, c, r, dt)
         cases = (
             ("B5", lambda: ops.lr_dykstra_half_batched(lk, gcol, logw),
              lambda: lr.dykstra_half_plain(lk, gcol, logw),
@@ -1119,7 +1174,7 @@ def lowrank_times(torch, ops, lr, gen):
             ("B6", lambda: ops.lr_gram_chain_batched(a, b, q, w),
              lambda: lr.gram_chain_plain(a, b, q, w),
              (n * (2 * c + r + 1) + c * r + r * r + 2 * r) * vb,
-             2.0 * n * r * (2 * c + 2 + r)),
+             2.0 * n * r * (2 * c + 2) + 2.0 * c * r * r),
             ("B7", lambda: ops.lr_grad_combine_batched(a, wm, w, s_, t_, iq),
              lambda: lr.grad_combine_plain(a, wm, w, s_, t_, iq),
              (n * (c + 1 + r) + c * r + 3 * r) * vb,
@@ -1136,43 +1191,59 @@ def lowrank_times(torch, ops, lr, gen):
     return rows
 
 
-def dykstra_times(torch, ops, gen):
-    """B5 in f64 at Runs C, D and E's shapes (N = 10⁶, r = 16; 10⁵, r = 8,
-    16, 32; 8192, r = 16), each beside its bytes bound (lk, gcol and log w
-    read once, f and col written once).  "warm": back to back on one lk,
-    which at 10⁵ and 8192 rows stays in the 50 MB L2; "cold": each launch
-    after a 64 MB write that flushes L2."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+def warm_cold(torch, fn, flush):
+    """(warm, cold) device ms of fn: back to back with the card kept busy
+    while the host enqueues, and each launch after a write that flushes
+    L2."""
+    warm = time_ms(torch, fn, reps=20)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    cold = 0.0
+    for _ in range(10):
+        flush.fill_(1)
+        torch.cuda._sleep(SLEEP_CYCLES // 20)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        cold += start.elapsed_time(end) / 10
+    return warm, cold
+
+
+def lowrank_shape_times(torch, ops, gen):
+    """B5–B7 in f64 at Runs C and D's shapes (N = 10⁶, r = 16; 10⁵, r =
+    8, 16, 32; c = 5), B5 also at Run E's (8192, r = 16), each beside its
+    bytes bound (each input read once, each output written once).  "warm":
+    back to back on the same inputs, which at 10⁵ and 8192 rows stay in
+    the 50 MB L2; "cold": each launch after a 64 MB write that flushes
+    L2."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    dt, c = torch.float64, C_LR
     for n, r, run in ((N_LR, R_LR, "C"), (100_000, 8, "D"),
                       (100_000, 16, "D"), (100_000, 32, "D"),
                       (N_BIG, R_LR, "E")):
-        lk = torch.randn((1, n, r), generator=gen, device="cuda",
-                         dtype=torch.float64)
-        gcol = torch.randn((1, r), generator=gen, device="cuda",
-                           dtype=torch.float64)
-        logw = torch.full((1, n), -math.log(n), device="cuda",
-                          dtype=torch.float64)
-
-        def call():
-            return ops.lr_dykstra_half_batched(lk, gcol, logw)
-
-        warm = time_ms(torch, call, reps=20)
-        cold = 0.0
-        for _ in range(10):
-            flush.fill_(1)
-            torch.cuda._sleep(SLEEP_CYCLES // 20)
-            start.record()
-            call()
-            end.record()
-            torch.cuda.synchronize()
-            cold += start.elapsed_time(end) / 10
-        bnd, by = bound_ms((n * r + 2 * n + 2 * r) * 8, 10.0 * n * r,
-                           "float64")
-        say(f"  B5 f64 N{n} r{r} (Run {run}'s shape): {warm:.5f} ms warm, "
-            f"{cold:.5f} ms with L2 flushed, bound {bnd:.5f} ms ({by}), "
-            f"{bnd / cold:.1%} of bound cold")
+        lk = torch.randn((1, n, r), generator=gen, device="cuda", dtype=dt)
+        gcol = torch.randn((1, r), generator=gen, device="cuda", dtype=dt)
+        logw = torch.full((1, n), -math.log(n), device="cuda", dtype=dt)
+        cases = [("B5", lambda: ops.lr_dykstra_half_batched(lk, gcol, logw),
+                  (n * r + 2 * n + 2 * r) * 8, 10.0 * n * r)]
+        if run != "E":        # a grid: no B6/B7
+            a, b, q, w = lr_inputs(torch, gen, n, c, r, dt)
+            wm, s_, t_, iq = combine_inputs(torch, gen, c, r, dt)
+            cases += [
+                ("B6", lambda: ops.lr_gram_chain_batched(a, b, q, w),
+                 (n * (2 * c + r + 1) + c * r + r * r + 2 * r) * 8,
+                 2.0 * n * r * (2 * c + 2) + 2.0 * c * r * r),
+                ("B7", lambda: ops.lr_grad_combine_batched(a, wm, w, s_, t_,
+                                                           iq),
+                 (n * (c + 1 + r) + c * r + 3 * r) * 8,
+                 1.0 * n * r * (2 * c + 6))]
+        for key, fn, nbytes, flops in cases:
+            warm, cold = warm_cold(torch, fn, flush)
+            bnd, by = bound_ms(nbytes, flops, "float64")
+            say(f"  {key} f64 N{n} r{r} (Run {run}'s shape): {warm:.5f} ms "
+                f"warm, {cold:.5f} ms with L2 flushed, bound {bnd:.5f} ms "
+                f"({by}), {bnd / cold:.1%} of bound cold")
         del lk
 
 
@@ -1244,7 +1315,7 @@ def main() -> int:
         walls.update(lr_walls)
         rows = phase_times(torch, ops, sinkhorn_step, fgc_scan, gen)
         rows.update(lowrank_times(torch, ops, lr_step, gen))
-        dykstra_times(torch, ops, gen)
+        lowrank_shape_times(torch, ops, gen)
         say("  runs (host clock around synchronised work): " + ", ".join(
             f"{k} {v:.3f} s" for k, v in walls.items()))
         say("phase 5: kernels")

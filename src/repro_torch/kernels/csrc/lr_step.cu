@@ -61,24 +61,59 @@
 //
 // B6, the factor Gram chain for D = A B^T and a factor Q:
 //   bq = B^T Q (c, r), gram = Q^T (A bq) (r, r), sq = Q^T 1, tq = Q^T w.
-// Bound: the bytes of B, Q, w and then A, Q (two passes: the Gram needs the
-// finished bq, a grid-wide dependency).  Each pass streams tiles of rows
-// through shared memory; a thread sums one tile's rows for each of its
-// items (a chain of at most 64 terms) and adds that to the block's partial
-// sum in registers (in f32 one 1024-long chain is several times less
-// accurate than the plain version's blocked sums); a fixed-order reduction
-// over the blocks finishes each pass.
-// Pass 1 treats [B | 1 | w] as one (N, c+2) operand, so bq, sq and tq are
-// one product.  Pass 2 forms U = A bq for the tile's rows in shared memory
-// and accumulates Q^T U.  All products are FMA loops written here.
+// Since Q^T (A B^T Q) = (A^T Q)^T (B^T Q), the chain is one tall, skinny
+// product X^T Q over the N rows, X = [B | A | 1 | w] (N, 2c + 2), and then
+// the (r, c) (c, r) product gram = P^T bq with P = A^T Q: no grid-wide
+// dependency, so one pass and one launch.  This is another association
+// than the reference's Q^T (A bq); chip_smoke holds it to the f64 bar of
+// the |.| chain and to the f32 rule, also on the exact factors of a point
+// cloud shifted off the origin, where the Gram's c-long dot cancels.
+// Bound: the bytes of A, B, Q and w read once.  The design:
+//   * A block takes a run of whole rows (the wrapper's launch plan,
+//     `gram_plan`: one wave of resident blocks, at least two an SM) and
+//     walks it in tiles through a ring of GR_STAGES stages in shared
+//     memory.  A tile is the four contiguous spans of its rows (B, A: rows
+//     * c values; Q: rows * r; w), copied by cp.async: 16-byte copies over
+//     each span's aligned body, single values before its first boundary,
+//     the last copy partial.  A span lands at its source's 16-byte phase,
+//     so aligned and offset inputs stage the same values in the same
+//     places, and give the same bits.
+//   * A thread owns a GR_KT x GR_JT register tile of the (2c + 2, r) sums.
+//     A pass's tiles are spread over the threads (one each); the rest of
+//     the block's threads repeat them as row groups, each taking every
+//     groups-th row of a tile: one FMA chain of at most GR_MAX_CHAIN rows
+//     (one 1024-row f32 chain failed the f32 bar), added to the thread's
+//     running sums once a tile.  Each row costs GR_KT + GR_JT shared loads
+//     for GR_KT * GR_JT FMAs; Q's GR_JT values are one or two 16-byte
+//     loads where its rows are whole vectors (QVEC).  Where the sums
+//     outnumber a block's threads' tiles (c, r far from the solves'), the
+//     block walks the outputs in passes and reads its rows again, from L2:
+//     correct there, not tuned.
+//   * A fixed-order merge without float atomics.  The row groups fold in a
+//     fixed tree in shared memory; the block's partial goes to scratch
+//     ([lane][block][k][j]); then two levels of integer tickets: the last
+//     block of each group of GR_GROUP blocks to finish sums the group's
+//     partials (a pairwise tree), and the last group of the lane merges the
+//     group sums in a fixed pairwise order (load batches summed as trees,
+//     the batches by a binary-counter cascade; never a sequential chain
+//     over the blocks, which fails the f32 rule) and writes bq, sq, tq and
+//     the Gram.  Each last block resets its ticket.  Two launches on the
+//     same inputs give the same bits.
 //
 // B7, the gradient assembly:
 //   out = (2 (d2 s^T + 1 t^T) - 4 A W) diag(iq),   W (c, r).
-// Bound: the bytes of A and d2 read and of the (N, r) output written.  One
-// thread per output element; W, s, t and iq live in shared memory.  The
-// elementwise tail uses round-to-nearest intrinsics so that the compiler
-// cannot contract d2*s + t into an FMA: the kernel and its plain version
-// then differ only in how the c-long dot is summed.
+// Bound: the bytes of A and d2 read and of the (N, r) output written.  A
+// thread owns VW consecutive outputs of a row, 16 bytes (4 in f32, 2 in
+// f64; one value where r is not a multiple of VW: the scalar
+// instantiation), so its column slice, and its slice of W (the first
+// CB_WREG rows; any further rows from L1), s, t and iq in registers, stay
+// the same for its whole walk over the rows.  A block walks tiles of rows
+// (one wave of blocks over the lanes' tiles); each tile's spans of A and
+// d2 are staged by cp.async one tile ahead (as B6's), and the threads of a
+// row read its c values of A from shared memory.  The stores are 16 bytes
+// and coalesced.  The elementwise tail uses round-to-nearest intrinsics so
+// that the compiler cannot contract d2*s + t into an FMA: the kernel and
+// its plain version then differ only in how the c-long dot is summed.
 //
 // Zero-mass atoms: a -inf term contributes nothing to a (max, sumexp) pair,
 // a merge with a -inf partial keeps the other side, a row whose lanes are
@@ -99,8 +134,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARP = 32;
 constexpr int WARPS = THREADS / WARP;
-constexpr int MAX_ITEMS = 16;          // register accumulators a thread
-constexpr int SMEM_BYTES = 48 * 1024;  // static limit without opt-in
+constexpr int MAX_COLS = 1024;         // c and r (lr_step.MAX_COLS)
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -207,6 +241,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's latest commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The larger of a and b: fmaxf in f32 (one instruction); in f64 a compare
 // and select, where fmax's NaN handling costs several (no NaN reaches it).
 __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
@@ -272,7 +312,7 @@ __device__ __forceinline__ T row_shift(T mx) {
 // ---------------------------------------------------------------------------
 
 constexpr int DK_STAGES = 2;   // a tile in use and the next one in flight
-constexpr int DK_MAX_COLS = 1024;
+constexpr int DK_MAX_COLS = MAX_COLS;
 constexpr int DK_COLS_A_THREAD = DK_MAX_COLS / THREADS;   // general, r > 256
 constexpr int DK_GENERAL_STAGE = 32 * 1024;   // general kernel: tile bytes
 
@@ -856,225 +896,583 @@ int dykstra_residency(int r, int tile_rows, int* out) {
 }
 
 // ---------------------------------------------------------------------------
-// B6: factor Gram chain
+// B6: factor Gram chain, one pass over the rows
 // ---------------------------------------------------------------------------
 
-// Rows of a tile that fit `cols` values a row in the shared-memory budget.
+constexpr int GR_KT = 4;            // a thread's outputs: GR_KT columns of X
+constexpr int GR_JT = 4;            //   by GR_JT columns of Q
+constexpr int GR_MAX_CHAIN = 64;    // rows of one FMA chain
+constexpr int GR_STAGES = 3;        // a tile in use and two in flight
+constexpr int GR_GROUP = 16;        // blocks of a first-level merge group
+constexpr int GR_BATCH = 32;        // partials a merge load batch
+constexpr int GR_LEVELS = 7;        // merge cascade: up to 2^7 batches
+constexpr int GR_MAX_BLOCKS = GR_GROUP * (GR_BATCH << GR_LEVELS);
+
+// The output tiling of B6 for (c, r): the (K, r) sums X^T Q, K = 2c + 2, in
+// GR_KT x GR_JT register tiles; `per_pass` tiles a pass (one a thread),
+// `groups` row groups of per_pass threads, `passes` passes over the rows.
+struct GramShape {
+  int k, nk, nj, tiles, per_pass, groups, passes;
+  __host__ __device__ GramShape(int c, int r) {
+    k = 2 * c + 2;
+    nk = (k + GR_KT - 1) / GR_KT;
+    nj = (r + GR_JT - 1) / GR_JT;
+    tiles = nk * nj;
+    per_pass = tiles < THREADS ? tiles : THREADS;
+    groups = THREADS / per_pass;
+    passes = (tiles + per_pass - 1) / per_pass;
+  }
+};
+
+// Values of a staged span of n values at any 16-byte phase: room for the
+// phase in front and for the last 16-byte copy's zero fill.
 template <typename T>
-int tile_rows(int cols) {
-  const int tr = SMEM_BYTES / (int)(sizeof(T) * cols);
-  return tr < 64 ? tr : 64;
+__host__ __device__ constexpr int span_cap(int n) {
+  constexpr int V = 16 / (int)sizeof(T);
+  return (n + 2 * (V - 1)) / V * V;
 }
 
-// Pass 1: part[(b*items + k*r + j)*nblk + blk] = sum over the block's rows
-// of X[i,k] Q[i,j], with X = [B | 1 | w] (items = (c+2)*r).
+// A stage of B6 (values of T): the tile's spans of B, A (tile_rows * c
+// each), Q (tile_rows * r) and w (tile_rows), each 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gram_pass1(const T* __restrict__ bmat, const T* __restrict__ q,
-           const T* __restrict__ w, T* __restrict__ part, int n, int c,
-           int r, int block_rows, int tr) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int na = c + 2;
-  T* xs = reinterpret_cast<T*>(smem_raw);        // tr x na
-  T* qs = xs + tr * na;                          // tr x r
-  const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int row0 = blk * block_rows;
-  const int rows = min(block_rows, n - row0);
-  const int64_t base = (int64_t)b * n + row0;
-  const int items = na * r;
-  for (int it0 = 0; it0 < items; it0 += THREADS * MAX_ITEMS) {
-    T acc[MAX_ITEMS];
-#pragma unroll
-    for (int u = 0; u < MAX_ITEMS; ++u) acc[u] = T(0);
-    for (int t0 = 0; t0 < rows; t0 += tr) {
-      const int tn = min(tr, rows - t0);
-      __syncthreads();                           // the last tile is consumed
-      for (int idx = threadIdx.x; idx < tn * na; idx += THREADS) {
-        const int i = idx / na, k = idx % na;
-        const int64_t gi = base + t0 + i;
-        xs[idx] = k < c ? bmat[gi * c + k] : (k == c ? T(1) : w[gi]);
-      }
-      for (int idx = threadIdx.x; idx < tn * r; idx += THREADS)
-        qs[idx] = q[(base + t0) * r + idx];
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < MAX_ITEMS; ++u) {
-        const int item = it0 + threadIdx.x + u * THREADS;
-        if (item < items) {
-          const int k = item / r, j = item % r;
-          T a = T(0);
-          for (int i = 0; i < tn; ++i) a = fma(xs[i * na + k], qs[i * r + j], a);
-          acc[u] += a;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < MAX_ITEMS; ++u) {
-      const int item = it0 + threadIdx.x + u * THREADS;
-      if (item < items) part[((int64_t)b * items + item) * nblk + blk] = acc[u];
-    }
+struct GramStage {
+  int b, a, q, w, total;
+  __host__ __device__ GramStage(int tile_rows, int c, int r) {
+    b = 0;
+    a = span_cap<T>(tile_rows * c);
+    q = 2 * a;
+    w = q + span_cap<T>(tile_rows * r);
+    total = w + span_cap<T>(tile_rows);
+  }
+};
+
+// B6's shared memory: a 16-byte slot for the constant 1, then the stages;
+// after the rows, the stages hold the row groups' sums for their fold.
+template <typename T>
+size_t gram_smem_bytes(int c, int r, int tile_rows) {
+  const GramShape gs(c, r);
+  const size_t stages =
+      (size_t)GR_STAGES * GramStage<T>(tile_rows, c, r).total * sizeof(T);
+  const size_t fold =
+      (size_t)gs.groups * gs.per_pass * GR_KT * GR_JT * sizeof(T);
+  return 16 + (stages > fold ? stages : fold);
+}
+
+// The 16-byte phase of p, in values of T.
+template <typename T>
+__device__ __forceinline__ int phase16(const T* p) {
+  return (int)(((uintptr_t)p % 16) / sizeof(T));
+}
+
+// Stage the n values at src into dst (16-byte aligned) at src's 16-byte
+// phase: value e lands at dst[phase16(src) + e].  16-byte copies over the
+// aligned body, the values before its first boundary one at a time, the
+// last copy partial (zero-filled, nothing read past the span).  Whatever
+// the alignment, the staged values are the same.  The caller commits.
+template <typename T>
+__device__ __forceinline__ void stage_span(T* dst, const T* src, int n) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int ph = phase16(src);
+  const int head = ph ? min(V - ph, n) : 0;
+  if ((int)threadIdx.x < head)
+    cp_async_small<sizeof(T)>(dst + ph + threadIdx.x, src + threadIdx.x);
+  const int chunks = (n - head + V - 1) / V;
+  for (int q = threadIdx.x; q < chunks; q += THREADS) {
+    const int e = head + q * V;
+    const int bytes = min(V, n - e) * (int)sizeof(T);
+    if (bytes == 16)
+      cp_async16(dst + ph + e, src + e);
+    else
+      cp_async16_part(dst + ph + e, src + e, bytes);
   }
 }
 
-// Pass 2: part[(b*r*r + j*r + l)*nblk + blk] = sum over the block's rows of
-// Q[i,j] U[i,l], with U = A bq formed for the tile's rows in shared memory;
-// bq is the first c rows of the lane's (c+2, r) pass-1 result.
+// Issue the copies of the `rows` rows from row0 into the stage at sl.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gram_pass2(const T* __restrict__ amat, const T* __restrict__ q,
-           const T* __restrict__ ext, T* __restrict__ part, int n, int c,
-           int r, int block_rows, int tr) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);        // tr x r
-  T* us = qs + tr * r;                           // tr x r
-  const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int row0 = blk * block_rows;
-  const int rows = min(block_rows, n - row0);
-  const int64_t base = (int64_t)b * n + row0;
-  const T* bq = ext + (int64_t)b * (c + 2) * r;
-  const int items = r * r;
-  for (int it0 = 0; it0 < items; it0 += THREADS * MAX_ITEMS) {
-    T acc[MAX_ITEMS];
+__device__ __forceinline__ void gram_issue(T* sl, const GramStage<T>& st,
+                                           const T* ab, const T* bb,
+                                           const T* qb, const T* wb, int row0,
+                                           int rows, int c, int r) {
+  stage_span(sl + st.b, bb + (int64_t)row0 * c, rows * c);
+  stage_span(sl + st.a, ab + (int64_t)row0 * c, rows * c);
+  stage_span(sl + st.q, qb + (int64_t)row0 * r, rows * r);
+  stage_span(sl + st.w, wb + row0, rows);
+}
+
+// The sum of count partials p[q * stride] in a fixed pairwise order:
+// batches of GR_BATCH loads in flight (each batch a pairwise tree), the
+// batch sums merged by a binary-counter cascade (sums of 2^k batches
+// combine as a tree), then the cascade's levels lowest first.  Never a
+// sequential chain over the partials.
+template <typename T>
+__device__ T merge_pairwise(const T* p, int64_t stride, int count) {
+  T stk[GR_LEVELS];
 #pragma unroll
-    for (int u = 0; u < MAX_ITEMS; ++u) acc[u] = T(0);
-    for (int t0 = 0; t0 < rows; t0 += tr) {
-      const int tn = min(tr, rows - t0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < tn * r; idx += THREADS) {
-        const int i = idx / r, l = idx % r;
-        const T* ai = amat + (base + t0 + i) * c;
-        T uu = T(0);
-        for (int k = 0; k < c; ++k) uu = fma(ai[k], bq[k * r + l], uu);
-        us[idx] = uu;
-        qs[idx] = q[(base + t0) * r + idx];
-      }
-      __syncthreads();
+  for (int k = 0; k < GR_LEVELS; ++k) stk[k] = T(0);
+  unsigned cnt = 0;
+  for (int q0 = 0; q0 < count; q0 += GR_BATCH) {
+    T z[GR_BATCH];
 #pragma unroll
-      for (int u = 0; u < MAX_ITEMS; ++u) {
-        const int item = it0 + threadIdx.x + u * THREADS;
-        if (item < items) {
-          const int j = item / r, l = item % r;
-          T a = T(0);
-          for (int i = 0; i < tn; ++i) a = fma(qs[i * r + j], us[i * r + l], a);
-          acc[u] += a;
+    for (int u = 0; u < GR_BATCH; ++u)
+      z[u] = q0 + u < count ? __ldcg(p + (int64_t)(q0 + u) * stride) : T(0);
+    tree_sum<GR_BATCH / 2>(z);
+    T v = z[0];
+    bool placed = false;
+#pragma unroll
+    for (int k = 0; k < GR_LEVELS; ++k) {
+      if (!placed) {
+        if ((cnt >> k) & 1u) {
+          v = stk[k] + v;
+        } else {
+          stk[k] = v;
+          placed = true;
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < MAX_ITEMS; ++u) {
-      const int item = it0 + threadIdx.x + u * THREADS;
-      if (item < items) part[((int64_t)b * items + item) * nblk + blk] = acc[u];
-    }
+    ++cnt;
   }
-}
-
-// out[b*items + item] = sum over the nblk partials, in a fixed order.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sum_blocks(const T* __restrict__ part, T* __restrict__ out, int items,
-           int nblk) {
-  __shared__ T s_s[THREADS];
-  const int64_t o = (int64_t)blockIdx.y * items + blockIdx.x;
   T s = T(0);
-  for (int k = threadIdx.x; k < nblk; k += THREADS) s += part[o * nblk + k];
-  s_s[threadIdx.x] = s;
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < stride) s_s[threadIdx.x] += s_s[threadIdx.x + stride];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < GR_LEVELS; ++k) {
+    if ((cnt >> k) & 1u) {
+      s = any ? stk[k] + s : stk[k];
+      any = true;
+    }
   }
-  if (threadIdx.x == 0) out[o] = s_s[0];
+  return s;
+}
+
+// QVEC: Q's rows are whole 16-byte vectors from an aligned base and r a
+// multiple of GR_JT, so a thread's GR_JT values of a row are whole vectors
+// of the staged tile, read as such (the same values as the scalar reads).
+template <typename T, bool QVEC>
+__global__ void __launch_bounds__(THREADS, 2)
+gram_chain(const T* __restrict__ amat, const T* __restrict__ bmat,
+           const T* __restrict__ q, const T* __restrict__ w,
+           T* __restrict__ part, unsigned* __restrict__ ticket,
+           T* __restrict__ sums, T* __restrict__ gram, int n, int c, int r,
+           int tile_rows) {
+  extern __shared__ uint4 smem[];
+  T* sm = reinterpret_cast<T*>(smem);    // [0]: 1; stages from 16 bytes on
+  constexpr int ONE = 0, STAGE0 = 16 / (int)sizeof(T);
+  const GramShape gs(c, r);
+  const GramStage<T> st(tile_rows, c, r);
+  const int lane = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const int row_a = (int)((int64_t)n * blk / nblk);
+  const int row_b = (int)((int64_t)n * (blk + 1) / nblk);
+  const T* ab = amat + (int64_t)lane * n * c;
+  const T* bb = bmat + (int64_t)lane * n * c;
+  const T* qb = q + (int64_t)lane * n * r;
+  const T* wb = w + (int64_t)lane * n;
+  const int kr = gs.k * r;
+  if (threadIdx.x == 0) sm[ONE] = T(1);
+  const int ntile = (row_b - row_a + tile_rows - 1) / tile_rows;
+  const int g = threadIdx.x / gs.per_pass;
+  const int slot_in_pass = threadIdx.x % gs.per_pass;
+  for (int pass = 0; pass < gs.passes; ++pass) {
+    const int tt = pass * gs.per_pass + slot_in_pass;
+    const bool active = g < gs.groups && tt < gs.tiles;
+    const int k0 = (tt / gs.nj) * GR_KT, j0 = (tt % gs.nj) * GR_JT;
+    int jj[GR_JT];
+#pragma unroll
+    for (int v = 0; v < GR_JT; ++v) jj[v] = min(j0 + v, r - 1);
+    T outer[GR_KT][GR_JT];
+#pragma unroll
+    for (int u = 0; u < GR_KT; ++u)
+#pragma unroll
+      for (int v = 0; v < GR_JT; ++v) outer[u][v] = T(0);
+    // the ring: tiles 0 .. GR_STAGES - 2 in flight before the first is
+    // used, then one more issued (a commit group each, empty past the
+    // last tile) as each is taken
+    for (int t = 0; t < GR_STAGES - 1; ++t) {
+      if (t < ntile)
+        gram_issue(sm + STAGE0 + t * st.total, st, ab, bb, qb, wb,
+                   row_a + t * tile_rows,
+                   min(tile_rows, row_b - row_a - t * tile_rows), c, r);
+      cp_async_commit();
+    }
+    for (int t = 0; t < ntile; ++t) {
+      const int row0 = row_a + t * tile_rows;
+      const int nrow = min(tile_rows, row_b - row0);
+      const int sl = STAGE0 + (t % GR_STAGES) * st.total;
+      cp_async_wait_pending<GR_STAGES - 2>();
+      __syncthreads();   // tile t is in; every thread is done with t - 1
+      const int ahead = t + GR_STAGES - 1;
+      if (ahead < ntile)
+        gram_issue(sm + STAGE0 + (ahead % GR_STAGES) * st.total, st, ab, bb,
+                   qb, wb, row_a + ahead * tile_rows,
+                   min(tile_rows, row_b - row_a - ahead * tile_rows), c, r);
+      cp_async_commit();
+      if (!active) continue;
+      // X = [B | A | 1 | w]: each of this thread's columns as a shared
+      // offset and a row stride (the constant 1 and padding: stride 0)
+      const int pb = sl + st.b + phase16(bb + (int64_t)row0 * c);
+      const int pa = sl + st.a + phase16(ab + (int64_t)row0 * c);
+      const int pq = sl + st.q + phase16(qb + (int64_t)row0 * r);
+      const int pw = sl + st.w + phase16(wb + row0);
+      int xo[GR_KT], xs[GR_KT];
+#pragma unroll
+      for (int u = 0; u < GR_KT; ++u) {
+        const int k = k0 + u;
+        xo[u] = k < c ? pb + k : k < 2 * c ? pa + k - c
+                : k == 2 * c + 1 ? pw : ONE;
+        xs[u] = k < 2 * c ? c : k == 2 * c + 1 ? 1 : 0;
+      }
+      T acc[GR_KT][GR_JT];
+#pragma unroll
+      for (int u = 0; u < GR_KT; ++u)
+#pragma unroll
+        for (int v = 0; v < GR_JT; ++v) acc[u][v] = T(0);
+      for (int i = g; i < nrow; i += gs.groups) {
+        T x[GR_KT], y[GR_JT];
+#pragma unroll
+        for (int u = 0; u < GR_KT; ++u) x[u] = sm[xo[u] + i * xs[u]];
+        const int qi = pq + i * r;
+        if constexpr (QVEC) {
+          constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+          for (int h = 0; h < GR_JT / V; ++h) {
+            T yv[V];
+            Vec16<T>::unpack(
+                *reinterpret_cast<const uint4*>(sm + qi + j0 + h * V), yv);
+#pragma unroll
+            for (int v = 0; v < V; ++v) y[h * V + v] = yv[v];
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < GR_JT; ++v) y[v] = sm[qi + jj[v]];
+        }
+#pragma unroll
+        for (int u = 0; u < GR_KT; ++u)
+#pragma unroll
+          for (int v = 0; v < GR_JT; ++v)
+            acc[u][v] = fma(x[u], y[v], acc[u][v]);
+      }
+#pragma unroll
+      for (int u = 0; u < GR_KT; ++u)
+#pragma unroll
+        for (int v = 0; v < GR_JT; ++v) outer[u][v] += acc[u][v];
+    }
+    // fold the row groups in a fixed tree, in the stage area:
+    // [group][slot in pass][u][v]
+    cp_async_wait_all();
+    __syncthreads();   // every thread is done with the last tile
+    constexpr int TV = GR_KT * GR_JT;
+    const int per_group = gs.per_pass * TV;
+    T* fold = sm + STAGE0;
+    if (g < gs.groups) {
+#pragma unroll
+      for (int u = 0; u < GR_KT; ++u)
+#pragma unroll
+        for (int v = 0; v < GR_JT; ++v)
+          fold[g * per_group + slot_in_pass * TV + u * GR_JT + v] =
+              outer[u][v];
+    }
+    int half = 1;
+    while (2 * half < gs.groups) half *= 2;
+    for (; half >= 1; half >>= 1) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < half * per_group; e += THREADS) {
+        const int gg = e / per_group;
+        if (gg + half < gs.groups) fold[e] += fold[e + half * per_group];
+      }
+    }
+    __syncthreads();
+    // the block's partial of this pass's outputs: [lane][block][k][j]
+    T* dst = part + ((int64_t)lane * nblk + blk) * kr;
+    for (int e = threadIdx.x; e < per_group; e += THREADS) {
+      const int t2 = pass * gs.per_pass + e / TV;
+      const int k = (t2 / gs.nj) * GR_KT + (e % TV) / GR_JT;
+      const int j = (t2 % gs.nj) * GR_JT + e % GR_JT;
+      if (t2 < gs.tiles && k < gs.k && j < r) dst[k * r + j] = fold[e];
+    }
+    __syncthreads();   // the fold is read before the next pass stages
+  }
+  // the merge, in two levels of integer tickets ([lane][1 + groups]): the
+  // last block of each group of GR_GROUP blocks to finish sums the group's
+  // partials (a pairwise tree) into the group's first slot; the last group
+  // to finish merges the group sums in a fixed pairwise order, writes the
+  // sums and the Gram epilogue.  Each last block resets its ticket.
+  __shared__ bool last;
+  const int ngrp = (nblk + GR_GROUP - 1) / GR_GROUP, grp = blk / GR_GROUP;
+  const int g0 = grp * GR_GROUP, gsize = min(GR_GROUP, nblk - g0);
+  unsigned* tk = ticket + (int64_t)lane * (1 + ngrp);
+  T* pl = part + (int64_t)lane * nblk * kr;
+  __threadfence();   // this block's partials, device-wide
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tk + 1 + grp, 1u) == (unsigned)(gsize - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();   // the group's partials
+  for (int e = threadIdx.x; e < kr; e += THREADS) {
+    T z[GR_GROUP];
+#pragma unroll
+    for (int u = 0; u < GR_GROUP; ++u)
+      z[u] = u < gsize ? __ldcg(pl + (int64_t)(g0 + u) * kr + e) : T(0);
+    tree_sum<GR_GROUP / 2>(z);
+    pl[(int64_t)g0 * kr + e] = z[0];
+  }
+  if (threadIdx.x == 0) tk[1 + grp] = 0;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tk, 1u) == (unsigned)(ngrp - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();   // every group's sum
+  // the sums also to shared memory (the stages are free) where they fit,
+  // for the Gram's reads
+  T* sb = sums + (int64_t)lane * kr;
+  const bool held = (int64_t)kr <= (int64_t)GR_STAGES * st.total;
+  T* hold = sm + STAGE0;
+  for (int e = threadIdx.x; e < kr; e += THREADS) {
+    const T v = merge_pairwise(pl + e, (int64_t)GR_GROUP * kr, ngrp);
+    sb[e] = v;
+    if (held) hold[e] = v;
+  }
+  __syncthreads();
+  // gram = P^T bq, P = A^T Q the rows c .. 2c-1 of the sums: a c-long dot
+  T* gb = gram + (int64_t)lane * r * r;
+  for (int e = threadIdx.x; e < r * r; e += THREADS) {
+    const int j = e / r, l = e % r;
+    T acc = T(0);
+    for (int k = 0; k < c; ++k)
+      acc = held ? fma(hold[(c + k) * r + j], hold[k * r + l], acc)
+                 : fma(__ldcg(sb + (c + k) * r + j), __ldcg(sb + k * r + l),
+                       acc);
+    gb[e] = acc;
+  }
+  if (threadIdx.x == 0) tk[0] = 0;
 }
 
 template <typename T>
 int launch_gram(const void* a, const void* bm, const void* q, const void* w,
-                void* ext, void* gram, void* part1, void* part2, int lanes,
-                int n, int c, int r, int block_rows, void* stream) {
-  const int nblk = (n + block_rows - 1) / block_rows;
-  const int tr1 = tile_rows<T>(c + 2 + r);
-  const int tr2 = tile_rows<T>(2 * r);
-  if (tr1 < 1 || tr2 < 1) return (int)cudaErrorInvalidValue;
+                void* part, void* ticket, void* sums, void* gram, int lanes,
+                int n, int c, int r, int tile_rows, int blocks,
+                void* stream) {
+  const GramShape gs(c, r);
+  if (c < 1 || r < 1 || c > MAX_COLS || r > MAX_COLS || tile_rows < 1 ||
+      blocks < 1 || blocks > n || blocks > GR_MAX_BLOCKS ||
+      tile_rows > GR_MAX_CHAIN * gs.groups)
+    return (int)cudaErrorInvalidValue;   // no block may be empty
+  // every lane's Q, and so every tile's rows, on a 16-byte boundary
+  const size_t rb = (size_t)r * sizeof(T);
+  const bool qvec = r % GR_JT == 0 && rb % 16 == 0 && aligned16(q);
+  const dim3 grid(blocks, lanes);
+  const size_t smem = gram_smem_bytes<T>(c, r, tile_rows);
   cudaStream_t st = (cudaStream_t)stream;
-  gram_pass1<T><<<dim3(nblk, lanes), THREADS,
-                  (size_t)tr1 * (c + 2 + r) * sizeof(T), st>>>(
-      (const T*)bm, (const T*)q, (const T*)w, (T*)part1, n, c, r, block_rows,
-      tr1);
-  cudaError_t err = cudaGetLastError();
+  return (int)(qvec ? launch(gram_chain<T, true>, grid, smem, st, (const T*)a,
+                             (const T*)bm, (const T*)q, (const T*)w, (T*)part,
+                             (unsigned*)ticket, (T*)sums, (T*)gram, n, c, r,
+                             tile_rows)
+                    : launch(gram_chain<T, false>, grid, smem, st,
+                             (const T*)a, (const T*)bm, (const T*)q,
+                             (const T*)w, (T*)part, (unsigned*)ticket,
+                             (T*)sums, (T*)gram, n, c, r, tile_rows));
+}
+
+// Resident blocks an SM of B6 at (c, r, tile_rows) (the vector-load
+// instantiation; the scalar one takes the same shared memory).
+template <typename T>
+int gram_residency(int c, int r, int tile_rows, int* out) {
+  const size_t smem = gram_smem_bytes<T>(c, r, tile_rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_chain<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sum_blocks<T><<<dim3((c + 2) * r, lanes), THREADS, 0, st>>>(
-      (const T*)part1, (T*)ext, (c + 2) * r, nblk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gram_pass2<T><<<dim3(nblk, lanes), THREADS,
-                  (size_t)tr2 * 2 * r * sizeof(T), st>>>(
-      (const T*)a, (const T*)q, (const T*)ext, (T*)part2, n, c, r, block_rows,
-      tr2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_blocks<T><<<dim3(r * r, lanes), THREADS, 0, st>>>(
-      (const T*)part2, (T*)gram, r * r, nblk);
-  return (int)cudaGetLastError();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, gram_chain<T, true>, THREADS, smem);
 }
 
 // ---------------------------------------------------------------------------
 // B7: gradient assembly
 // ---------------------------------------------------------------------------
 
+constexpr int CB_WREG = 8;        // rows of W a thread keeps in registers
+constexpr int CB_STAGES = 2;      // a tile of A in use, the next in flight
+constexpr int CB_STAGE_BYTES = 8 * 1024;
+
+// VW values of T as one store: 16 bytes, or a scalar (VW = 1).
+template <typename T, int VW> struct Pack;
+template <> struct Pack<float, 4> {
+  __device__ static void store(float* p, const float (&o)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+};
+template <> struct Pack<double, 2> {
+  __device__ static void store(double* p, const double (&o)[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(o[0], o[1]);
+  }
+};
+template <typename T> struct Pack<T, 1> {
+  __device__ static void store(T* p, const T (&o)[1]) { *p = o[0]; }
+};
+
+// B7's geometry for rank r and VW outputs a thread: `per_row` threads a
+// row (one VW-wide column slice each, a block's threads at most),
+// `rows_blk` rows a block at a time, and a tile of `tile_rows` rows (whole
+// rows_blk steps, about CB_STAGE_BYTES of A and d2) a stage.
+struct CombineShape {
+  int slices, per_row, rows_blk, tile_rows;
+  __host__ __device__ CombineShape(int c, int r, int vw, int itemsize) {
+    slices = r / vw;
+    per_row = slices < THREADS ? slices : THREADS;
+    rows_blk = THREADS / per_row;
+    const int rows = CB_STAGE_BYTES / ((c + 1) * itemsize);
+    tile_rows = rows < rows_blk ? rows_blk : rows / rows_blk * rows_blk;
+  }
+};
+
+// B7's stage: the tile's spans of A (tile_rows * c) and d2 (tile_rows).
 template <typename T>
+__host__ __device__ int combine_stage(int c, int tile_rows) {
+  return span_cap<T>(tile_rows * c) + span_cap<T>(tile_rows);
+}
+
+template <typename T, int VW>
 __global__ void __launch_bounds__(THREADS)
 grad_combine(const T* __restrict__ amat, const T* __restrict__ wm,
              const T* __restrict__ d2, const T* __restrict__ sv,
              const T* __restrict__ tv, const T* __restrict__ iq,
              T* __restrict__ out, int n, int c, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);       // c x r
-  T* s_s = w_s + c * r;
-  T* t_s = s_s + r;
-  T* iq_s = t_s + r;
-  const int b = blockIdx.y;
-  for (int idx = threadIdx.x; idx < c * r; idx += THREADS)
-    w_s[idx] = wm[(int64_t)b * c * r + idx];
-  for (int j = threadIdx.x; j < r; j += THREADS) {
-    s_s[j] = sv[(int64_t)b * r + j];
-    t_s[j] = tv[(int64_t)b * r + j];
-    iq_s[j] = iq[(int64_t)b * r + j];
+  extern __shared__ uint4 smem[];
+  T* sm = reinterpret_cast<T*>(smem);
+  const CombineShape cs(c, r, VW, sizeof(T));
+  const int stage = combine_stage<T>(c, cs.tile_rows);
+  const int lane = blockIdx.y;
+  const int sub = threadIdx.x / cs.per_row;
+  const bool row_thread = sub < cs.rows_blk;
+  const T* ab = amat + (int64_t)lane * n * c;
+  const T* db = d2 + (int64_t)lane * n;
+  const T* wb = wm + (int64_t)lane * c * r;
+  T* ob = out + (int64_t)lane * n * r;
+  const int ntile = (int)(((int64_t)n + cs.tile_rows - 1) / cs.tile_rows);
+  for (int s0 = 0; s0 < cs.slices; s0 += cs.per_row) {
+    const int sl = s0 + threadIdx.x % cs.per_row;
+    const bool active = row_thread && sl < cs.slices;
+    const int j0 = (active ? sl : 0) * VW;
+    T wr[CB_WREG][VW], s[VW], t[VW], qv[VW];
+#pragma unroll
+    for (int k = 0; k < CB_WREG; ++k)
+#pragma unroll
+      for (int v = 0; v < VW; ++v) wr[k][v] = k < c ? wb[k * r + j0 + v] : T(0);
+#pragma unroll
+    for (int v = 0; v < VW; ++v) {
+      s[v] = sv[(int64_t)lane * r + j0 + v];
+      t[v] = tv[(int64_t)lane * r + j0 + v];
+      qv[v] = iq[(int64_t)lane * r + j0 + v];
+    }
+    // the block's tiles, blockIdx.x + gridDim.x * it, each staged one
+    // ahead with cp.async (A and d2 read from memory once a slice pass)
+    int tile = blockIdx.x;
+    if (tile < ntile) {
+      const int64_t row0 = (int64_t)tile * cs.tile_rows;
+      const int rows = (int)min((int64_t)cs.tile_rows, n - row0);
+      stage_span(sm, ab + row0 * c, rows * c);
+      stage_span(sm + span_cap<T>(cs.tile_rows * c), db + row0, rows);
+    }
+    cp_async_commit();
+    for (int it = 0; tile < ntile; ++it, tile += gridDim.x) {
+      const int64_t row0 = (int64_t)tile * cs.tile_rows;
+      const int nrow = (int)min((int64_t)cs.tile_rows, n - row0);
+      const int so = (it % CB_STAGES) * stage;
+      cp_async_wait_all();
+      __syncthreads();   // tile `it` is in; every thread is done with it - 1
+      const int next = tile + gridDim.x;
+      if (next < ntile) {
+        const int64_t nrow0 = (int64_t)next * cs.tile_rows;
+        const int rows = (int)min((int64_t)cs.tile_rows, n - nrow0);
+        T* dst = sm + ((it + 1) % CB_STAGES) * stage;
+        stage_span(dst, ab + nrow0 * c, rows * c);
+        stage_span(dst + span_cap<T>(cs.tile_rows * c), db + nrow0, rows);
+      }
+      cp_async_commit();
+      if (!active) continue;
+      const int pa = so + phase16(ab + row0 * c);
+      const int pd = so + span_cap<T>(cs.tile_rows * c) + phase16(db + row0);
+      for (int i = sub; i < nrow; i += cs.rows_blk) {
+        const int ai = pa + i * c;
+        T quad[VW];
+#pragma unroll
+        for (int v = 0; v < VW; ++v) quad[v] = T(0);
+#pragma unroll
+        for (int k = 0; k < CB_WREG; ++k) {
+          if (k < c) {
+            const T a = sm[ai + k];
+#pragma unroll
+            for (int v = 0; v < VW; ++v) quad[v] = fma(a, wr[k][v], quad[v]);
+          }
+        }
+        for (int k = CB_WREG; k < c; ++k) {   // c > CB_WREG: W from L1
+          const T a = sm[ai + k];
+#pragma unroll
+          for (int v = 0; v < VW; ++v)
+            quad[v] = fma(a, __ldg(wb + k * r + j0 + v), quad[v]);
+        }
+        const T di = sm[pd + i];
+        T o[VW];
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          const T lin = Num<T>::add(Num<T>::mul(di, s[v]), t[v]);
+          o[v] = Num<T>::mul(Num<T>::sub(Num<T>::mul(T(2), lin),
+                                         Num<T>::mul(T(4), quad[v])),
+                             qv[v]);
+        }
+        Pack<T, VW>::store(ob + (row0 + i) * r + j0, o);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();   // the stages are free before the next slice pass
   }
-  __syncthreads();
-  const int64_t total = (int64_t)n * r;
-  const T* ab = amat + (int64_t)b * n * c;
-  const T* db = d2 + (int64_t)b * n;
-  T* ob = out + (int64_t)b * total;
-  for (int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x; idx < total;
-       idx += (int64_t)gridDim.x * THREADS) {
-    const int64_t i = idx / r;
-    const int j = (int)(idx % r);
-    const T* ai = ab + i * c;
-    T quad = T(0);
-    for (int k = 0; k < c; ++k) quad = fma(ai[k], w_s[k * r + j], quad);
-    const T lin = Num<T>::add(Num<T>::mul(db[i], s_s[j]), t_s[j]);
-    ob[idx] = Num<T>::mul(Num<T>::sub(Num<T>::mul(T(2), lin),
-                                      Num<T>::mul(T(4), quad)),
-                          iq_s[j]);
-  }
+}
+
+// 16-byte stores when a row is a whole number of them, else scalar.
+template <typename T>
+constexpr int combine_vec() { return 16 / (int)sizeof(T); }
+
+template <typename T>
+bool combine_vector(int r) { return r % combine_vec<T>() == 0; }
+
+template <typename T>
+size_t combine_smem_bytes(int c, int r) {
+  const int vw = combine_vector<T>(r) ? combine_vec<T>() : 1;
+  const CombineShape cs(c, r, vw, sizeof(T));
+  return (size_t)CB_STAGES * combine_stage<T>(c, cs.tile_rows) * sizeof(T);
+}
+
+// Call fn(kernel) with the B7 instantiation that takes rank r.
+template <typename T, typename F>
+cudaError_t with_combine(int r, F&& fn) {
+  return combine_vector<T>(r) ? fn(grad_combine<T, combine_vec<T>()>)
+                              : fn(grad_combine<T, 1>);
 }
 
 template <typename T>
 int launch_combine(const void* a, const void* wm, const void* d2,
                    const void* sv, const void* tv, const void* iq, void* out,
-                   int lanes, int n, int c, int r, void* stream) {
-  const size_t smem = (size_t)(c + 3) * r * sizeof(T);
-  if (smem > (size_t)SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)n * r;
-  int64_t blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  grad_combine<T><<<dim3((unsigned)blocks, lanes), THREADS, smem,
-                    (cudaStream_t)stream>>>(
-      (const T*)a, (const T*)wm, (const T*)d2, (const T*)sv, (const T*)tv,
-      (const T*)iq, (T*)out, n, c, r);
-  return (int)cudaGetLastError();
+                   int lanes, int n, int c, int r, int blocks, void* stream) {
+  if (c < 1 || r < 1 || c > MAX_COLS || r > MAX_COLS || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)with_combine<T>(r, [&](auto kern) {
+    return launch(kern, dim3(blocks, lanes), combine_smem_bytes<T>(c, r),
+                  (cudaStream_t)stream, (const T*)a, (const T*)wm,
+                  (const T*)d2, (const T*)sv, (const T*)tv, (const T*)iq,
+                  (T*)out, n, c, r);
+  });
+}
+
+// Resident blocks an SM of the B7 instantiation that takes (c, r).
+template <typename T>
+int combine_residency(int c, int r, int* out) {
+  const size_t smem = combine_smem_bytes<T>(c, r);
+  return (int)with_combine<T>(r, [&](auto kern) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, THREADS,
+                                                         smem);
+  });
 }
 
 }  // namespace
@@ -1098,26 +1496,33 @@ DYKSTRA_ENTRY(f64_f64, double, double)
 DYKSTRA_ENTRY(bf16_f32, __nv_bfloat16, float)
 DYKSTRA_ENTRY(bf16_f64, __nv_bfloat16, double)
 
-#define GRAM_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(const void* a, const void* b, const void* q,           \
-                      const void* w, void* ext, void* gram, void* part1,     \
-                      void* part2, int lanes, int n, int c, int r,           \
-                      int block_rows, void* stream) {                        \
-    return launch_gram<T>(a, b, q, w, ext, gram, part1, part2, lanes, n, c,  \
-                          r, block_rows, stream);                            \
+#define GRAM_ENTRY(TAG, T)                                                   \
+  extern "C" int lr_gram_chain_##TAG(                                       \
+      const void* a, const void* b, const void* q, const void* w,           \
+      void* part, void* ticket, void* sums, void* gram, int lanes, int n,   \
+      int c, int r, int tile_rows, int blocks, void* stream) {              \
+    return launch_gram<T>(a, b, q, w, part, ticket, sums, gram, lanes, n,   \
+                          c, r, tile_rows, blocks, stream);                 \
+  }                                                                         \
+  extern "C" int lr_gram_residency_##TAG(int c, int r, int tile_rows,       \
+                                         int* out) {                        \
+    return gram_residency<T>(c, r, tile_rows, out);                         \
   }
 
-GRAM_ENTRY(lr_gram_chain_f32, float)
-GRAM_ENTRY(lr_gram_chain_f64, double)
+GRAM_ENTRY(f32, float)
+GRAM_ENTRY(f64, double)
 
-#define COMBINE_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* a, const void* wm, const void* d2,         \
-                      const void* sv, const void* tv, const void* iq,        \
-                      void* out, int lanes, int n, int c, int r,             \
-                      void* stream) {                                        \
-    return launch_combine<T>(a, wm, d2, sv, tv, iq, out, lanes, n, c, r,     \
-                             stream);                                        \
+#define COMBINE_ENTRY(TAG, T)                                                \
+  extern "C" int lr_grad_combine_##TAG(                                     \
+      const void* a, const void* wm, const void* d2, const void* sv,        \
+      const void* tv, const void* iq, void* out, int lanes, int n, int c,   \
+      int r, int blocks, void* stream) {                                    \
+    return launch_combine<T>(a, wm, d2, sv, tv, iq, out, lanes, n, c, r,    \
+                             blocks, stream);                               \
+  }                                                                         \
+  extern "C" int lr_grad_combine_residency_##TAG(int c, int r, int* out) { \
+    return combine_residency<T>(c, r, out);                                 \
   }
 
-COMBINE_ENTRY(lr_grad_combine_f32, float)
-COMBINE_ENTRY(lr_grad_combine_f64, double)
+COMBINE_ENTRY(f32, float)
+COMBINE_ENTRY(f64, double)

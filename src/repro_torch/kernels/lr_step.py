@@ -19,12 +19,15 @@ The single-problem path calls them with B = 1.  The CUDA source is
 ``csrc/lr_step.cu``; its note says how the sequential grid axes of the TPU
 kernels became per-block partials merged in a fixed order.  What bounds
 each on the card is bytes: lk (B5, against the issue of two ``exp`` an
-element), the factors read in two passes (B6), the factor and the (N, r)
-output (B7).  B5's grid comes from `dykstra_plan`, a pure function of the
-shape and the card's SM count, so the CPU tests hold it.
+element), A, B, Q and w read once (B6: one pass and one launch, the chain
+taken as (AᵀQ)ᵀ(BᵀQ), XᵀQ over X = [B | A | 1 | w]), A and d2 read and
+the (N, r) output written (B7, 16 bytes a thread).  B5's, B6's and B7's
+grids come from `dykstra_plan`, `gram_plan` and `combine_plan`, pure
+functions of the shape and the card's SM count and occupancy, so the CPU
+tests hold them.
 
-The plain versions are the same functions in PyTorch ops, with the kernels'
-association (B6: BᵀQ first; B7: the quad term A·W against the (c, r) seed).
+The plain versions are the reference's expressions and association (B6:
+BᵀQ first, then Qᵀ(A·bq); B7: the quad term A·W against the (c, r) seed).
 They are the CPU path and the yardstick of the kernels' arithmetic on the
 card.
 """
@@ -41,8 +44,6 @@ from repro_torch.kernels.sinkhorn_step import MAX_LANES, _lse
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64",
               torch.bfloat16: "bf16"}
-#: rows a block of each Gram-chain pass takes
-GRAM_ROWS = 1024
 #: B5's geometry (``csrc/lr_step.cu``): ranks in DYKSTRA_TIERS take the
 #: tier kernel, whose tile is DYKSTRA_TILE_VECS 16-byte vectors of lk a
 #: thread (a lane holds one vector of a row, two in f64);
@@ -57,10 +58,32 @@ DYKSTRA_STAGE_BYTES = 32 * 1024
 DYKSTRA_MAX_TILE_ROWS = 1024
 DYKSTRA_MIN_BLOCKS_PER_SM = 2
 MAX_ROWS = 2 ** 31 - 1     # N is an int in the kernels
-#: the kernels' limits: r and c up to this many columns, and B7's
-#: (c + 3)·r values of shared memory within 48 KiB
+#: the kernels' limit: r and c up to this many columns
 MAX_COLS = 1024
-SMEM_BYTES = 48 * 1024
+#: B6's geometry (``csrc/lr_step.cu``): the (2c + 2, r) sums XᵀQ in
+#: GRAM_TILE register tiles, one a thread and a pass; the threads of a pass
+#: in row groups; a ring of GRAM_STAGES tiles of rows, each about
+#: GRAM_STAGE_BYTES and at most GRAM_MAX_CHAIN rows a group (one FMA
+#: chain); GRAM_THREADS threads a block.  The grid is one wave of the
+#: blocks an SM holds, at least GRAM_MIN_BLOCKS_PER_SM of them wherever N
+#: has the rows, and no more than GRAM_MERGE_VALUES / ((2c + 2)·r) a lane
+#: (the merge's scratch); the merge takes at most GRAM_MAX_BLOCKS partials,
+#: in groups of GRAM_GROUP blocks (a ticket each, and one a lane).
+GRAM_THREADS = 256
+GRAM_TILE = (4, 4)
+GRAM_STAGES = 3
+GRAM_STAGE_BYTES = 32 * 1024
+GRAM_MAX_CHAIN = 64
+GRAM_MIN_BLOCKS_PER_SM = 2
+GRAM_MERGE_VALUES = 2 ** 22
+GRAM_GROUP = 16
+GRAM_MAX_BLOCKS = 2 ** 16
+#: B7's geometry: a thread takes 16 bytes of a row's outputs (4 f32, 2
+#: f64; one value where r is not a multiple of that), COMBINE_THREADS a
+#: block; a tile of about COMBINE_STAGE_BYTES of A and d2 a stage; one wave
+#: of the blocks an SM holds, walking the tiles.
+COMBINE_THREADS = 256
+COMBINE_STAGE_BYTES = 8 * 1024
 
 
 def dykstra_half_plain(lk, gcol, logw):
@@ -162,6 +185,122 @@ def dykstra_smem_bytes(r, itemsize, dual_bytes):
             + merge)
 
 
+class GramShape(NamedTuple):
+    """B6's output tiling for (c, r): `k` = 2c + 2 rows of sums, `tiles`
+    register tiles, `per_pass` of them a pass (one a thread), `groups` row
+    groups of per_pass threads, `passes` passes over a block's rows."""
+    k: int
+    tiles: int
+    per_pass: int
+    groups: int
+    passes: int
+
+
+def gram_shape(c, r):
+    """B6's tiling of the (2c + 2, r) sums (the kernels' `GramShape`)."""
+    k = 2 * c + 2
+    tiles = -(-k // GRAM_TILE[0]) * -(-r // GRAM_TILE[1])
+    per_pass = min(tiles, GRAM_THREADS)
+    return GramShape(k, tiles, per_pass, GRAM_THREADS // per_pass,
+                     -(-tiles // per_pass))
+
+
+def gram_tile_rows(c, r, itemsize):
+    """Rows of one B6 stage: about GRAM_STAGE_BYTES of A, B, Q and w, at
+    most GRAM_MAX_CHAIN rows for each row group, at least one row."""
+    rows = GRAM_STAGE_BYTES // ((2 * c + r + 1) * itemsize)
+    return max(1, min(GRAM_MAX_CHAIN * gram_shape(c, r).groups, rows))
+
+
+def _span_cap(n, itemsize):
+    """Values of a span of n staged at any 16-byte phase (`span_cap`)."""
+    v = 16 // itemsize
+    return (n + 2 * (v - 1)) // v * v
+
+
+def gram_smem_bytes(c, r, itemsize, tile_rows):
+    """Shared memory of a B6 block, as the kernel lays it out: a 16-byte
+    slot for the constant 1, then GRAM_STAGES stages of the spans of B, A,
+    Q and w (each at any 16-byte phase), which after the rows hold the row
+    groups' sums for their fold."""
+    stage = (2 * _span_cap(tile_rows * c, itemsize)
+             + _span_cap(tile_rows * r, itemsize)
+             + _span_cap(tile_rows, itemsize))
+    gs = gram_shape(c, r)
+    fold = gs.groups * gs.per_pass * GRAM_TILE[0] * GRAM_TILE[1]
+    return 16 + max(GRAM_STAGES * stage, fold) * itemsize
+
+
+class GramPlan(NamedTuple):
+    """B6's launch: `blocks` blocks a lane, each a run of whole rows, a
+    stage of `tile_rows` rows at a time."""
+    tile_rows: int
+    blocks: int
+
+
+def gram_block_rows(plan, n, blk):
+    """The rows [a, b) that block `blk` of the plan takes (the kernel's
+    row_a, row_b)."""
+    return n * blk // plan.blocks, n * (blk + 1) // plan.blocks
+
+
+def gram_plan(lanes, n, c, r, itemsize, sms,
+              blocks_per_sm=GRAM_MIN_BLOCKS_PER_SM):
+    """B6's grid for `lanes` lanes of (N, c) factors and an (N, r) Q of
+    `itemsize` bytes on a card of `sms` SMs that holds `blocks_per_sm` of
+    its blocks: one wave of blocks_per_sm·sms blocks over all lanes (at
+    least GRAM_MIN_BLOCKS_PER_SM an SM, fewer only where N has fewer rows
+    or the merge's scratch would pass GRAM_MERGE_VALUES a lane), none
+    empty."""
+    if not (1 <= lanes <= MAX_LANES and 1 <= n <= MAX_ROWS
+            and 1 <= c <= MAX_COLS and 1 <= r <= MAX_COLS):
+        raise ValueError(f"B6 cannot take {lanes} lanes of ({n}, {c}) "
+                         f"factors at rank {r}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"B6 takes 4 or 8 bytes a value, not {itemsize}")
+    per_sm = max(GRAM_MIN_BLOCKS_PER_SM, blocks_per_sm)
+    blocks = min(n, max(1, per_sm * sms // lanes), GRAM_MAX_BLOCKS,
+                 max(1, GRAM_MERGE_VALUES // ((2 * c + 2) * r)))
+    return GramPlan(gram_tile_rows(c, r, itemsize), blocks)
+
+
+class CombinePlan(NamedTuple):
+    """B7's launch: `vec` outputs a thread (16 bytes, or 1), `per_row`
+    threads a row, `rows_per_block` rows a block at a time, a stage of
+    `tile_rows` rows, `blocks` blocks a lane walking the tiles."""
+    vec: int
+    per_row: int
+    rows_per_block: int
+    tile_rows: int
+    blocks: int
+
+
+def combine_vec(r, itemsize):
+    """Outputs a B7 thread stores at once: 16 bytes where a row is a whole
+    number of them, else one value."""
+    v = 16 // itemsize
+    return v if r % v == 0 else 1
+
+
+def combine_plan(lanes, n, c, r, itemsize, sms, blocks_per_sm):
+    """B7's grid (the kernel's `CombineShape`): one wave of
+    blocks_per_sm·sms blocks over all lanes, no more than the tiles."""
+    if not (1 <= lanes <= MAX_LANES and 1 <= n <= MAX_ROWS
+            and 1 <= c <= MAX_COLS and 1 <= r <= MAX_COLS):
+        raise ValueError(f"B7 cannot take {lanes} lanes of ({n}, {c}) "
+                         f"factors at rank {r}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"B7 takes 4 or 8 bytes a value, not {itemsize}")
+    vec = combine_vec(r, itemsize)
+    per_row = min(r // vec, COMBINE_THREADS)
+    rows = COMBINE_THREADS // per_row
+    fit = COMBINE_STAGE_BYTES // ((c + 1) * itemsize)
+    tile_rows = rows if fit < rows else fit // rows * rows
+    blocks = min(-(-n // tile_rows),
+                 max(1, max(1, blocks_per_sm) * sms // lanes))
+    return CombinePlan(vec, per_row, rows, tile_rows, blocks)
+
+
 def _library():
     from repro_torch.kernels import build
 
@@ -216,34 +355,40 @@ def _float_dtype(t):
     return t.dtype
 
 
+def _residency(name, *args):
+    """Resident blocks an SM of a kernel, asked of the runtime."""
+    fn = getattr(_library(), name)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    resident = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    return resident.value
+
+
 @functools.cache
 def _launch_plan(tag, lanes, n, r, itemsize, device):
     """B5's plan on `device`, one wave of the blocks its SMs hold (the
     kernel's occupancy, asked of the runtime once a shape)."""
-    tile_rows = dykstra_tile_rows(r, itemsize)
-    fn = getattr(_library(), f"lr_dykstra_residency_{tag}")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    resident = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = fn(r, tile_rows, ctypes.byref(resident))
-    if rc != 0:
-        raise RuntimeError(f"lr_dykstra_residency_{tag}: CUDA error {rc}")
+        resident = _residency(f"lr_dykstra_residency_{tag}", r,
+                              dykstra_tile_rows(r, itemsize))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return dykstra_plan(lanes, n, r, itemsize, sms, resident.value)
+    return dykstra_plan(lanes, n, r, itemsize, sms, resident)
 
 
-#: B5's integer tickets, one a lane, by (device, stream): zero between
-#: launches (the last block of a lane resets its own)
+#: B5's and B6's integer tickets by (device, stream): zero between
+#: launches (the last block to take one resets it); B5 takes one a lane,
+#: B6 one a lane and one a group of GRAM_GROUP blocks
 _TICKETS: dict = {}
 
 
-def _tickets(dev, lanes):
+def _tickets(dev, count):
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     ticket = _TICKETS.get(key)
-    if ticket is None or ticket.numel() < lanes:
-        ticket = _TICKETS[key] = torch.zeros(lanes, dtype=torch.int32,
+    if ticket is None or ticket.numel() < count:
+        ticket = _TICKETS[key] = torch.zeros(count, dtype=torch.int32,
                                              device=dev)
     return ticket
 
@@ -267,24 +412,47 @@ def dykstra_half_cuda(lk, gcol, logw):
     return f, col
 
 
+@functools.cache
+def _gram_launch_plan(tag, lanes, n, c, r, itemsize, device):
+    """B6's plan on `device`, one wave of the blocks its SMs hold."""
+    with torch.cuda.device(device):
+        resident = _residency(f"lr_gram_residency_{tag}", c, r,
+                              gram_tile_rows(c, r, itemsize))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return gram_plan(lanes, n, c, r, itemsize, sms, resident)
+
+
+@functools.cache
+def _combine_launch_plan(tag, lanes, n, c, r, itemsize, device):
+    """B7's plan on `device`, one wave of the blocks its SMs hold."""
+    with torch.cuda.device(device):
+        resident = _residency(f"lr_grad_combine_residency_{tag}", c, r)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return combine_plan(lanes, n, c, r, itemsize, sms, resident)
+
+
 def gram_chain_cuda(a, b, q, w):
-    """Launch B6 (both passes, one C entry point): A, B (B, N, c), Q (B, N,
-    r), w (B, N) → (bq (B, c, r), gram (B, r, r), sq (B, r), tq (B, r))."""
+    """Launch B6 (one launch: one pass over the rows, the lane's partials
+    merged by its last block): A, B (B, N, c), Q (B, N, r), w (B, N) →
+    (bq (B, c, r), gram (B, r, r), sq (B, r), tq (B, r))."""
     lanes, n, c = _dims(a, "A")
     _, _, r = _dims(q, "Q")
     dt = _float_dtype(q)
+    dev = q.device
     _check((("A", a), ("B", b), ("Q", q), ("w", w)),
            ((lanes, n, c), (lanes, n, c), (lanes, n, r), (lanes, n)), dt,
-           q.device)
-    nblk = -(-n // GRAM_ROWS)
-    ext = torch.empty((lanes, c + 2, r), dtype=dt, device=q.device)
-    gram = torch.empty((lanes, r, r), dtype=dt, device=q.device)
-    part1 = torch.empty((lanes, (c + 2) * r, nblk), dtype=dt,
-                        device=q.device)
-    part2 = torch.empty((lanes, r * r, nblk), dtype=dt, device=q.device)
-    _call(f"lr_gram_chain_{_DTYPE_TAG[dt]}", 5, q.device,
-          (a, b, q, w, ext, gram, part1, part2), (lanes, n, c, r, GRAM_ROWS))
-    return ext[:, :c], gram, ext[:, c], ext[:, c + 1]
+           dev)
+    tag = _DTYPE_TAG[dt]
+    plan = _gram_launch_plan(tag, lanes, n, c, r, q.element_size(), dev)
+    k = 2 * c + 2
+    sums = torch.empty((lanes, k, r), dtype=dt, device=dev)
+    gram = torch.empty((lanes, r, r), dtype=dt, device=dev)
+    part = torch.empty((lanes, plan.blocks, k * r), dtype=dt, device=dev)
+    tickets = _tickets(dev, lanes * (1 + -(-plan.blocks // GRAM_GROUP)))
+    _call(f"lr_gram_chain_{tag}", 6, dev,
+          (a, b, q, w, part, tickets, sums, gram),
+          (lanes, n, c, r, plan.tile_rows, plan.blocks))
+    return sums[:, :c], gram, sums[:, 2 * c], sums[:, 2 * c + 1]
 
 
 def grad_combine_cuda(a, w_small, d2, s, t, iq):
@@ -297,10 +465,10 @@ def grad_combine_cuda(a, w_small, d2, s, t, iq):
             ("iq", iq)),
            ((lanes, n, c), (lanes, c, r), (lanes, n), (lanes, r), (lanes, r),
             (lanes, r)), dt, a.device)
-    if (c + 3) * r * iq.element_size() > SMEM_BYTES:
-        raise ValueError(f"c={c}, r={r}: W, s, t and iq exceed the "
-                         f"kernel's {SMEM_BYTES} bytes of shared memory")
+    tag = _DTYPE_TAG[dt]
+    plan = _combine_launch_plan(tag, lanes, n, c, r, iq.element_size(),
+                                a.device)
     out = torch.empty((lanes, n, r), dtype=dt, device=a.device)
-    _call(f"lr_grad_combine_{_DTYPE_TAG[dt]}", 4, a.device,
-          (a, w_small, d2, s, t, iq, out), (lanes, n, c, r))
+    _call(f"lr_grad_combine_{tag}", 5, a.device,
+          (a, w_small, d2, s, t, iq, out), (lanes, n, c, r, plan.blocks))
     return out

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (GWConfig, Grid1D, LowRankGeometry, entropic_gw)
+from repro_torch.core import (GWConfig, Grid1D, LowRankGeometry,
+                              PointCloudGeometry, entropic_gw)
 from repro_torch.kernels import fgc_scan, lr_step, ops, sinkhorn_step
 
 pytestmark = pytest.mark.cuda
@@ -509,9 +510,16 @@ def _factors(gen, lanes, n, c, r, dtype):
     return a, b, q, w
 
 
+# B6/B7 shapes: tiny N (fewer rows than the plan's blocks), the scalar
+# B7 ranks 1 and 6, c > 8 (B7's W past its registers), r = 64, a ragged N,
+# and Run D's 10⁵ rows at r = 8, 16, 32
+_LR_SHAPES = [(1, 5, 1), (45, 5, 6), (300, 12, 16), (257, 5, 64),
+              (100_003, 5, 16), (100_000, 5, 8), (100_000, 5, 16),
+              (100_000, 5, 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,c,r", [(1, 5, 1), (45, 5, 6), (300, 12, 16),
-                                   (257, 5, 64), (100_003, 5, 16)])
+@pytest.mark.parametrize("n,c,r", _LR_SHAPES)
 def test_gram_chain_matches_plain(dev, dtype, n, c, r):
     a, b, q, w = _factors(_gen(n * c + r), 2, n, c, r, dtype)
     got = lr_step.gram_chain_cuda(a, b, q, w)
@@ -533,8 +541,7 @@ def test_gram_chain_matches_plain(dev, dtype, n, c, r):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,c,r", [(1, 5, 1), (45, 5, 6), (300, 12, 16),
-                                   (257, 5, 64), (100_003, 5, 16)])
+@pytest.mark.parametrize("n,c,r", _LR_SHAPES)
 def test_grad_combine_matches_plain(dev, dtype, n, c, r):
     gen = _gen(n + 7 * c + r)
     a, _, _, d2 = _factors(gen, 2, n, c, r, dtype)
@@ -549,6 +556,104 @@ def test_grad_combine_matches_plain(dev, dtype, n, c, r):
              + 4 * a.abs() @ wm.abs()) * iq.abs()[:, None, :]
     # only the c-long dot is summed otherwise; the tail rounds alike
     assert ((got - want).abs() <= 2 * (c + 3) * _u(dtype) * scale).all()
+
+
+def _shifted_cloud_factors(gen, n, dtype):
+    """The exact squared-Euclidean factors [|x|², 1, −2x] and [1, |x|², x]
+    of 3-D Gaussian points shifted by +5 (not centred): the entries of A
+    and B are large and the Gram's c-long dot cancels."""
+    x = torch.randn((1, n, 3), generator=gen, device="cuda",
+                    dtype=torch.float64) + 5.0
+    sq = (x ** 2).sum(-1, keepdim=True)
+    one = torch.ones_like(sq)
+    return (torch.cat([sq, one, -2 * x], -1).to(dtype),
+            torch.cat([one, sq, x], -1).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_chain_shifted_cloud(dev, dtype):
+    """Run C's law of factors, shifted off the origin, at Run C's N and
+    rank: the one-pass association (AᵀQ)ᵀ(BᵀQ) holds the bars of
+    `test_gram_chain_matches_plain` where it differs most from the plain
+    version's Qᵀ(A·BᵀQ)."""
+    gen = _gen(21)
+    n, r = 1_000_000, 16
+    a, b = _shifted_cloud_factors(gen, n, dtype)
+    q = torch.rand((1, n, r), generator=gen, device=dev, dtype=dtype) / n
+    w = torch.rand((1, n), generator=gen, device=dev, dtype=dtype)
+    got = lr_step.gram_chain_cuda(a, b, q, w)
+    torch.cuda.synchronize()
+    want = lr_step.gram_chain_plain(a, b, q, w)
+    if dtype == torch.float32:
+        want64 = lr_step.gram_chain_plain(a.double(), b.double(), q.double(),
+                                          w.double())
+        for name, x, y, z in zip(("bq", "gram", "sq", "tq"), got, want,
+                                 want64):
+            _assert_tied(x, y, z, name)
+        return
+    scale = lr_step.gram_chain_plain(a.abs(), b.abs(), q.abs(), w.abs())
+    c = a.shape[2]
+    for name, x, y, s in zip(("bq", "gram", "sq", "tq"), got, want, scale):
+        assert ((x - y).abs() <= 4 * (n + c) * _u(dtype) * s).all(), name
+
+
+@pytest.mark.parametrize("n,c,r", [(1_000_000, 5, 16), (100_000, 5, 32),
+                                   (300, 12, 16), (45, 5, 6), (1, 5, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_chain_bitwise_repeatable(dev, n, c, r, dtype):
+    """Two launches on the same two lanes give the same bits: each lane's
+    block partials merge in a fixed pairwise order after an integer
+    ticket, never by float atomics."""
+    a, b, q, w = _factors(_gen(n + c + r), 2, n, c, r, dtype)
+    first = lr_step.gram_chain_cuda(a, b, q, w)
+    second = lr_step.gram_chain_cuda(a, b, q, w)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def _offset_copy(x):
+    """x's values in storage that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    return shifted
+
+
+@pytest.mark.parametrize("n,c,r", [(100_003, 5, 16), (300, 12, 16),
+                                   (45, 5, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_chain_alignment_changes_no_bit(dev, n, c, r, dtype):
+    """A, B, Q and w in storage off a 16-byte boundary are staged at
+    another phase (single-value copies at the ends, 16-byte copies over
+    the body); the staged rows and the order of sums are the same, so the
+    bits agree with aligned copies."""
+    a, b, q, w = _factors(_gen(3 * n + r), 2, n, c, r, dtype)
+    got = lr_step.gram_chain_cuda(*(_offset_copy(x) for x in (a, b, q, w)))
+    want = lr_step.gram_chain_cuda(a, b, q, w)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n,c,r", [(1_000_000, 5, 16), (100_003, 5, 6),
+                                   (300, 12, 16), (45, 5, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grad_combine_bitwise_repeatable(dev, n, c, r, dtype):
+    """Two launches on the same two lanes, and A off a 16-byte boundary,
+    give the same bits (the vector and the scalar instantiation)."""
+    gen = _gen(n + 5 * c + r)
+    a, _, _, d2 = _factors(gen, 2, n, c, r, dtype)
+    wm = torch.randn((2, c, r), generator=gen, device=dev, dtype=dtype)
+    s, t, iq = (torch.randn((2, r), generator=gen, device=dev, dtype=dtype)
+                for _ in range(3))
+    first = lr_step.grad_combine_cuda(a, wm, d2, s, t, iq)
+    second = lr_step.grad_combine_cuda(a, wm, d2, s, t, iq)
+    shifted = lr_step.grad_combine_cuda(_offset_copy(a), wm, d2, s, t, iq)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, shifted)
 
 
 def test_lowrank_wrappers_count_and_refuse(dev):
@@ -596,6 +701,73 @@ def test_lowrank_gw_kernels_match_plain(dev):
     assert counts["lr_dykstra_half"] == 2 * rk.info.inner_iters
     assert counts["lr_gram_chain"] == 2 * rk.info.outer_iters + 2
     assert counts["lr_grad_combine"] == 2 * rk.info.outer_iters
+    assert abs(float(rk.value - rp.value)) <= 1e-8 * abs(float(rp.value))
+    for name in "qrg":
+        torch.testing.assert_close(getattr(rk.coupling, name),
+                                   getattr(rp.coupling, name), rtol=1e-8,
+                                   atol=1e-12)
+
+
+def test_lowrank_zero_mass_kernels_match_plain(dev):
+    """Zero-mass atoms on both sides of a factored solve on point clouds:
+    B5–B7 against the plain path, equal counts and launches as the code
+    implies, the zero rows kept at 0."""
+    rng = np.random.default_rng(13)
+    pts = [torch.tensor(rng.normal(size=(n, 3)), device=dev)
+           for n in (300, 400)]
+    mu = torch.full((300,), 1.0, device=dev, dtype=torch.float64)
+    nu = torch.full((400,), 1.0, device=dev, dtype=torch.float64)
+    mu[-7:] = 0.0
+    nu[:11] = 0.0
+    nu[200] = 0.0
+    mu, nu = mu / mu.sum(), nu / nu.sum()
+    base = dict(eps=5e-2, outer_iters=15, sinkhorn_iters=50, tol=1e-6,
+                eps_init=0.5, anneal_decay=0.7, plan="lowrank", plan_rank=8)
+    gx, gy = (PointCloudGeometry(p) for p in pts)
+    ops.reset_launch_counts()
+    rk = entropic_gw(gx, gy, mu, nu, GWConfig(lowrank_backend="auto", **base))
+    counts = dict(ops.LAUNCHES)
+    rp = entropic_gw(gx, gy, mu, nu, GWConfig(lowrank_backend="torch",
+                                              **base))
+    assert rk.info.outer_iters == rp.info.outer_iters
+    assert rk.info.inner_iters == rp.info.inner_iters
+    assert counts["lr_dykstra_half"] == 2 * rk.info.inner_iters
+    assert counts["lr_gram_chain"] == 2 * rk.info.outer_iters + 2
+    assert counts["lr_grad_combine"] == 2 * rk.info.outer_iters
+    assert abs(float(rk.value - rp.value)) <= 1e-8 * abs(float(rp.value))
+    for name in "qrg":
+        torch.testing.assert_close(getattr(rk.coupling, name),
+                                   getattr(rp.coupling, name), rtol=1e-8,
+                                   atol=1e-12)
+    assert float(rk.coupling.q[-7:].abs().max()) == 0.0
+    assert float(rk.coupling.r[:11].abs().max()) == 0.0
+
+
+def test_lowrank_grid_cost_rank_kernels_match_plain(dev):
+    """`cost_rank` on grids (M ≠ N; the grids keep their FGC apply): the
+    kernel route (B3 and B5; no B6/B7 on grids) against the plain path,
+    equal counts and launches as the code implies."""
+    n, m = 400, 300
+    rng = np.random.default_rng(14)
+    mu = torch.tensor(rng.random(n) + 0.1, device=dev)
+    nu = torch.tensor(rng.random(m) + 0.1, device=dev)
+    mu, nu = mu / mu.sum(), nu / nu.sum()
+    gx, gy = Grid1D(n, 1 / (n - 1), 1), Grid1D(m, 1 / (m - 1), 1)
+    base = dict(eps=5e-2, outer_iters=10, sinkhorn_iters=50, tol=1e-6,
+                eps_init=0.5, anneal_decay=0.7, plan="lowrank", plan_rank=8,
+                cost_rank=3)
+    ops.reset_launch_counts()
+    rk = entropic_gw(gx, gy, mu, nu, GWConfig(backend="kernel",
+                                              lowrank_backend="auto", **base))
+    counts = dict(ops.LAUNCHES)
+    rp = entropic_gw(gx, gy, mu, nu, GWConfig(backend="cumsum",
+                                              lowrank_backend="torch",
+                                              **base))
+    assert rk.info.outer_iters == rp.info.outer_iters
+    assert rk.info.inner_iters == rp.info.inner_iters
+    assert counts["lr_dykstra_half"] == 2 * rk.info.inner_iters
+    assert counts["lr_gram_chain"] == counts["lr_grad_combine"] == 0
+    assert counts["fgc_apply_dtilde"] > 0
     assert abs(float(rk.value - rp.value)) <= 1e-8 * abs(float(rp.value))
     for name in "qrg":
         torch.testing.assert_close(getattr(rk.coupling, name),

@@ -288,6 +288,147 @@ def test_dykstra_plan_refuses(lanes, n, r, itemsize, what):
         lr_step.dykstra_plan(lanes, n, r, itemsize, 132)
 
 
+# B6/B7 shapes: Runs C and D, the tests' small and ragged ones, several
+# lanes, and the contract's corners (c, r up to 1024, N up to 2³¹ − 1)
+_GR_SHAPES = [(1, 1, 5, 1, 4), (2, 45, 5, 6, 8), (2, 300, 12, 16, 4),
+              (1, 10 ** 6, 5, 16, 4), (1, 10 ** 6, 5, 16, 8),
+              (1, 10 ** 5, 5, 8, 8), (1, 10 ** 5, 5, 32, 8),
+              (2, 100_003, 5, 64, 8), (3, 999_983, 5, 16, 4),
+              (1, 70, 1024, 1024, 8), (4, 257, 1, 1023, 4),
+              (65535, 3, 5, 16, 8), (1, 2 ** 31 - 1, 1, 1, 4)]
+
+
+@pytest.mark.parametrize("lanes,n,c,r,itemsize", _GR_SHAPES)
+def test_gram_plan_covers_rows(lanes, n, c, r, itemsize):
+    """B6's plan: every row of a lane in exactly one block's run, no block
+    empty, and at most GRAM_MAX_CHAIN rows of a stage for each row group
+    (one FMA chain)."""
+    plan = lr_step.gram_plan(lanes, n, c, r, itemsize, 132)
+    assert 1 <= plan.blocks <= min(n, lr_step.GRAM_MAX_BLOCKS)
+    blocks = sorted({0, 1, plan.blocks // 2, plan.blocks - 2,
+                     plan.blocks - 1} & set(range(plan.blocks)))
+    spans = [lr_step.gram_block_rows(plan, n, k) for k in blocks]
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(b > a for a, b in spans)
+    if plan.blocks <= 4096:
+        every = [lr_step.gram_block_rows(plan, n, k)
+                 for k in range(plan.blocks)]
+        assert all(x[1] == y[0] for x, y in zip(every, every[1:]))
+        assert all(b > a for a, b in every)
+    gs = lr_step.gram_shape(c, r)
+    assert 1 <= plan.tile_rows <= lr_step.GRAM_MAX_CHAIN * gs.groups
+    assert plan.blocks * (2 * c + 2) * r <= max(lr_step.GRAM_MERGE_VALUES,
+                                                (2 * c + 2) * r)
+
+
+@pytest.mark.parametrize("c,r", [(1, 1), (5, 1), (5, 6), (5, 8), (5, 16),
+                                 (12, 16), (5, 64), (100, 3), (1024, 1024)])
+def test_gram_shape_covers_the_outputs(c, r):
+    """B6's register tiles cover the (2c + 2, r) sums once: the passes'
+    tiles, one a thread, and the row groups fit the block's threads, and
+    a pass of more than one group leaves fewer idle threads than a tile's
+    worth of groups."""
+    gs = lr_step.gram_shape(c, r)
+    kt, jt = lr_step.GRAM_TILE
+    assert gs.k == 2 * c + 2
+    assert gs.tiles * kt * jt >= gs.k * r
+    assert (gs.tiles - 1) // -(-r // jt) * kt < gs.k
+    assert gs.per_pass * gs.passes >= gs.tiles
+    assert gs.per_pass * (gs.passes - 1) < gs.tiles
+    assert gs.per_pass * gs.groups <= lr_step.GRAM_THREADS
+    assert lr_step.GRAM_THREADS - gs.per_pass * gs.groups < gs.per_pass
+
+
+@pytest.mark.parametrize("n,r", [(10 ** 6, 16), (10 ** 5, 8), (10 ** 5, 16),
+                                 (10 ** 5, 32), (10 ** 6, 64)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_gram_plan_fills_the_card(n, r, itemsize):
+    """At Runs C and D's shapes one lane's grid is one wave of two blocks
+    on each of a 132-SM card's SMs, or of three where three fit."""
+    assert lr_step.gram_plan(1, n, 5, r, itemsize, 132).blocks == 2 * 132
+    assert lr_step.gram_plan(1, n, 5, r, itemsize, 132,
+                             blocks_per_sm=3).blocks == 3 * 132
+
+
+@pytest.mark.parametrize("lanes", [2, 3, 5, 64, 500])
+def test_gram_plan_spreads_lanes(lanes):
+    """Several lanes share one wave: the lanes' blocks together fill it
+    and do not pass it (one block a lane once lanes outnumber it)."""
+    plan = lr_step.gram_plan(lanes, 10 ** 5, 5, 16, 8, 132)
+    if lanes <= 2 * 132:
+        assert 2 * 132 - lanes < plan.blocks * lanes <= 2 * 132
+    else:
+        assert plan.blocks == 1
+
+
+@pytest.mark.parametrize("c,r", [(1, 1), (5, 1), (5, 6), (5, 16), (5, 32),
+                                 (5, 64), (12, 16), (5, 300), (300, 5),
+                                 (1024, 1), (1, 1024), (1024, 1024)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_gram_smem_within_the_limit(c, r, itemsize):
+    """A B6 block's shared memory stays within what an H100 block can opt
+    in to (227 KB), room for two blocks an SM wherever a stage holds
+    whole GRAM_STAGE_BYTES of rows; a stage is at least one row."""
+    rows = lr_step.gram_tile_rows(c, r, itemsize)
+    smem = lr_step.gram_smem_bytes(c, r, itemsize, rows)
+    assert smem <= 232_448
+    row_bytes = (2 * c + r + 1) * itemsize
+    if row_bytes <= lr_step.GRAM_STAGE_BYTES:
+        assert 2 * smem <= 232_448
+        assert rows * row_bytes <= lr_step.GRAM_STAGE_BYTES
+    assert rows >= 1
+
+
+@pytest.mark.parametrize("lanes,n,c,r,itemsize,what", [
+    (0, 10, 5, 4, 8, "lanes"), (1, 0, 5, 4, 8, "lanes"),
+    (1, 10, 0, 4, 8, "lanes"), (1, 10, 5, 0, 8, "lanes"),
+    (1, 10, 1025, 4, 8, "lanes"), (1, 10, 5, 1025, 8, "lanes"),
+    (65536, 10, 5, 4, 8, "lanes"), (1, 2 ** 31, 5, 4, 8, "lanes"),
+    (1, 10, 5, 4, 2, "bytes")])
+def test_gram_plan_refuses(lanes, n, c, r, itemsize, what):
+    with pytest.raises(ValueError, match=what):
+        lr_step.gram_plan(lanes, n, c, r, itemsize, 132)
+
+
+@pytest.mark.parametrize("r,itemsize,vec", [(16, 4, 4), (16, 8, 2),
+                                            (8, 8, 2), (32, 8, 2),
+                                            (6, 4, 1), (6, 8, 2), (1, 4, 1),
+                                            (1, 8, 1), (1024, 4, 4),
+                                            (1023, 8, 1)])
+@pytest.mark.parametrize("c", [1, 5, 12, 1024])
+def test_combine_plan_covers_rows(r, itemsize, vec, c):
+    """B7's plan: 16-byte stores where a row holds whole ones, one value
+    else; the threads of a row cover its slices (walking them where a row
+    has more than a block's threads); a tile is whole steps of the block's
+    rows within COMBINE_STAGE_BYTES (one step at least); the grid is one
+    wave and no block is without a tile."""
+    for n in (1, 45, 100_003, 10 ** 6):
+        plan = lr_step.combine_plan(1, n, c, r, itemsize, 132, 8)
+        assert plan.vec == vec == lr_step.combine_vec(r, itemsize)
+        assert plan.per_row == min(r // vec, lr_step.COMBINE_THREADS)
+        assert plan.rows_per_block * plan.per_row <= \
+            lr_step.COMBINE_THREADS < (plan.rows_per_block + 1) * \
+            plan.per_row
+        assert plan.tile_rows % plan.rows_per_block == 0
+        assert plan.tile_rows == plan.rows_per_block or \
+            plan.tile_rows * (c + 1) * itemsize <= \
+            lr_step.COMBINE_STAGE_BYTES
+        assert 1 <= plan.blocks <= 8 * 132
+        assert (plan.blocks - 1) * plan.tile_rows < n
+        if n >= 8 * 132 * plan.tile_rows:
+            assert plan.blocks == 8 * 132
+
+
+def test_combine_plan_spreads_lanes_and_refuses():
+    plan = lr_step.combine_plan(3, 10 ** 6, 5, 16, 4, 132, 8)
+    assert plan.blocks * 3 <= 8 * 132 < (plan.blocks + 1) * 3
+    for bad in ((0, 10, 5, 4, 8), (1, 0, 5, 4, 8), (1, 10, 5, 0, 8),
+                (1, 10, 5, 1025, 8), (1, 10, 0, 4, 8), (1, 10, 1025, 4, 8),
+                (1, 10, 5, 4, 2)):
+        with pytest.raises(ValueError):
+            lr_step.combine_plan(*bad, 132, 8)
+
+
 # B3's five target shapes (Runs A, B and E; the squared-distance applies)
 _DT_TARGETS = [(8192, 8192), (64, 262144), (8192, 16), (8192, 1)]
 _DT_SHAPES = _DT_TARGETS + [(1, 1), (15, 3), (17, 1), (255, 9000),

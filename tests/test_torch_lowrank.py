@@ -247,6 +247,63 @@ def test_entropic_gw_lowrank_matches_reference(route, monkeypatch):
                                rtol=1e-10)
 
 
+@pytest.mark.parametrize("route", ["torch", "fused"])
+def test_entropic_gw_lowrank_zero_mass_matches_reference(route,
+                                                         monkeypatch):
+    """Zero-mass atoms on both sides (trailing and interior): the factored
+    plan keeps their rows at 0 and matches the reference's route (xla for
+    the plain route, pallas in interpret mode for the fused route, whose
+    B6/B7 plain versions then see the zero rows) at its own bar."""
+    px, py = _clouds(20, 25, 0)
+    mu, nu = _unif(40), _unif(50)
+    mu[-4:] = 0.0
+    nu[:5] = 0.0
+    nu[20] = 0.0
+    mu, nu = mu / mu.sum(), nu / nu.sum()
+    jcfg = jcore.GWConfig(**ANNEALED, lowrank_backend="xla" if route ==
+                          "torch" else "pallas")
+    want = jcore.entropic_gw(JPC(jnp.asarray(px)), JPC(jnp.asarray(py)),
+                             jnp.asarray(mu), jnp.asarray(nu), jcfg)
+    if route == "fused":
+        _force_fused(monkeypatch)
+    cfg = convert.gw_config(dataclasses.asdict(jcfg))
+    got = core.entropic_gw(_pc(px), _pc(py), mu, nu, dataclasses.replace(
+        cfg, lowrank_backend="auto"), device="cpu")
+    assert got.info.outer_iters == int(want.info.outer_iters)
+    assert got.info.inner_iters == int(want.info.inner_iters)
+    assert got.info.converged == bool(want.info.converged)
+    _assert_coupling(got.coupling, want.coupling)
+    np.testing.assert_allclose(float(got.value), float(want.value),
+                               rtol=1e-10)
+    assert float(got.coupling.q[-4:].abs().max()) == 0.0
+    assert float(got.coupling.r[:5].abs().max()) == 0.0
+
+
+def test_entropic_gw_lowrank_grid_cost_rank_matches_reference():
+    """`cost_rank` with grids (M ≠ N): both packages keep a grid's FGC
+    apply and ignore the knob, so the solve is the factored plan on grids;
+    counts equal and factors at the reference's bar over the annealing's
+    10 steps."""
+    n, m = 40, 30
+    rng = np.random.default_rng(3)
+    mu, nu = rng.random(n) + 0.1, rng.random(m) + 0.1
+    mu, nu = mu / mu.sum(), nu / nu.sum()
+    jcfg = jcore.GWConfig(**dict(ANNEALED, outer_iters=10, cost_rank=3))
+    want = jcore.entropic_gw(jcore.Grid1D(n, 1 / (n - 1), 1),
+                             jcore.Grid1D(m, 1 / (m - 1), 1),
+                             jnp.asarray(mu), jnp.asarray(nu), jcfg)
+    got = core.entropic_gw(core.Grid1D(n, 1 / (n - 1), 1),
+                           core.Grid1D(m, 1 / (m - 1), 1), mu, nu,
+                           convert.gw_config(dataclasses.asdict(jcfg)),
+                           device="cpu")
+    assert got.coupling.q.shape == (n, 8) and got.coupling.r.shape == (m, 8)
+    assert got.info.outer_iters == int(want.info.outer_iters)
+    assert got.info.inner_iters == int(want.info.inner_iters)
+    _assert_coupling(got.coupling, want.coupling)
+    np.testing.assert_allclose(float(got.value), float(want.value),
+                               rtol=1e-10)
+
+
 def test_entropic_gw_auto_rank_matches_reference():
     """plan_rank="auto" at the reference's own case: the same final rank
     and the same counts accumulated over the restarts."""

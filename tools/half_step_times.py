@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the Sinkhorn half-step kernels (B1 row, B2 column), the fused FGC
-D̃ apply (B3) and the Dykstra half-sweep (B5) of one source tree on one
-NVIDIA card.
+D̃ apply (B3), the Dykstra half-sweep (B5), the factor Gram chain (B6) and
+the gradient assembly (B7) of one source tree on one NVIDIA card.
 
     python3 tools/half_step_times.py [--src DIR] [--reps 50] [--only KIND]
 
@@ -14,10 +14,12 @@ f32 duals (Run C), N = 10⁵ at r = 8, 16, 32 in f64 (Run D) and N = 8192, r =
 16 in f64 (Run E); B3 (p = 1 unless stated) on x of 8192 × 8192 in f32 and
 f64 (Run A's gradient), 64 × 262144 in f64 at p = 1 and 2 (Run B's), 8192 ×
 16 in f64 (Run E's D_X Q) and 8192 × 1 in f32 and f64 at p = 1 and 2 (the
-squared-distance applies). B5 is timed twice: back to back on the same lk
-("warm": at 10⁵ and 8192 rows lk stays in the 50 MB L2), and each launch
-after a 64 MB write that flushes L2 ("cold", an event pair around each
-launch). Before each timed stretch the card sleeps while the host enqueues
+squared-distance applies); B6 and B7 at N = 10⁶, c = 5, r = 16 in f32 and
+f64 (Run C) and N = 10⁵ at r = 8, 16, 32 in f64 (Run D). B5, B6 and B7 are
+timed twice: back to back on the same inputs ("warm": at 10⁵ and 8192 rows
+they stay in the 50 MB L2), and each launch after a 64 MB write that
+flushes L2 ("cold", an event pair around each launch). Before each timed
+stretch the card sleeps while the host enqueues
 it, so the events time the kernels, not the host's issue; the host's own
 time a call is printed beside them ("host_ms"). Inputs come from a fixed
 seed, so two trees see the same data. Prints the card, then one JSON line a
@@ -49,6 +51,9 @@ LR_CASES = (("f32", 10 ** 6, 16, "float32", "float32"),
             ("f64", 10 ** 5, 16, "float64", "float64"),
             ("f64", 10 ** 5, 32, "float64", "float64"),
             ("f64", 8192, 16, "float64", "float64"))
+GRAD_CASES = (("f32", 10 ** 6, 5, 16), ("f64", 10 ** 6, 5, 16),
+              ("f64", 10 ** 5, 5, 8), ("f64", 10 ** 5, 5, 16),
+              ("f64", 10 ** 5, 5, 32))
 CASES = (("f32", 8192, 8192, "float32", "float32"),
          ("f64", 8192, 8192, "float64", "float64"),
          ("bf16-C/f32", 8192, 8192, "float32", "bfloat16"),
@@ -61,7 +66,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--only", choices=("half", "dykstra", "fgc"))
+    ap.add_argument("--only", choices=("half", "dykstra", "fgc", "lowrank"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -84,7 +89,68 @@ def main() -> int:
         fgc(torch, ops, gen, start, end, args)
     if args.only in (None, "dykstra"):
         dykstra(torch, ops, gen, start, end, args)
+    if args.only in (None, "lowrank"):
+        lowrank(torch, ops, gen, start, end, args)
     return 0
+
+
+def warm_cold(torch, fn, start, end, flush, reps):
+    """(warm ms, cold ms, host ms) of fn: back to back with the card kept
+    busy while the host enqueues, then each launch after an L2 flush."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    warm = start.elapsed_time(end) / reps
+    cold = 0.0
+    for _ in range(reps):
+        flush.fill_(1)
+        torch.cuda._sleep(SLEEP_CYCLES // 20)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        cold += start.elapsed_time(end)
+    return warm, cold / reps, host
+
+
+def lowrank(torch, ops, gen, start, end, args):
+    """B6 and B7 at Runs C and D's shapes; bounds count the inputs read
+    once and the outputs written once."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for tag, n, c, r in GRAD_CASES:
+        dt = torch.float32 if tag == "f32" else torch.float64
+        vb = torch.finfo(dt).bits // 8
+        a, b = (torch.randn((1, n, c), generator=gen, device="cuda",
+                            dtype=dt) for _ in range(2))
+        q = torch.rand((1, n, r), generator=gen, device="cuda",
+                       dtype=dt) / n
+        w = torch.rand((1, n), generator=gen, device="cuda", dtype=dt)
+        wm = torch.randn((1, c, r), generator=gen, device="cuda", dtype=dt)
+        s_, t_, iq = (torch.randn((1, r), generator=gen, device="cuda",
+                                  dtype=dt) for _ in range(3))
+        cases = (
+            ("gram_chain", lambda: ops.lr_gram_chain_batched(a, b, q, w),
+             (n * (2 * c + r + 1) + c * r + r * r + 2 * r) * vb),
+            ("grad_combine",
+             lambda: ops.lr_grad_combine_batched(a, wm, w, s_, t_, iq),
+             (n * (c + 1 + r) + c * r + 3 * r) * vb))
+        for kernel, fn, nbytes in cases:
+            warm, cold, host = warm_cold(torch, fn, start, end, flush,
+                                         args.reps)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(json.dumps({"src": args.src, "kernel": kernel,
+                              "dtype": tag, "n": n, "c": c, "r": r,
+                              "ms": warm, "cold_ms": cold, "host_ms": host,
+                              "bound_ms": bound, "of_bound": bound / warm}),
+                  flush=True)
+        del a, b, q, w
 
 
 def fgc(torch, ops, gen, start, end, args):
@@ -123,30 +189,9 @@ def dykstra(torch, ops, gen, start, end, args):
         # lk, gcol and log w read once, f and col written once
         nbytes = lk.numel() * lk.element_size() + (2 * n + 2 * r) * vb
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        fn = ops.lr_dykstra_half_batched
-        fn(lk, gcol, logw)
-        torch.cuda.synchronize()
-        # the card sleeps while the host enqueues, so the events time the
-        # kernels and not the host's issue of them
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            fn(lk, gcol, logw)
-        host = (time.perf_counter() - t0) / args.reps * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        warm = start.elapsed_time(end) / args.reps
-        cold = 0.0
-        for _ in range(args.reps):
-            flush.fill_(1)
-            torch.cuda._sleep(SLEEP_CYCLES // 20)
-            start.record()
-            fn(lk, gcol, logw)
-            end.record()
-            torch.cuda.synchronize()
-            cold += start.elapsed_time(end)
-        cold /= args.reps
+        warm, cold, host = warm_cold(
+            torch, lambda: ops.lr_dykstra_half_batched(lk, gcol, logw),
+            start, end, flush, args.reps)
         print(json.dumps({"src": args.src, "kernel": "dykstra", "dtype": tag,
                           "n": n, "r": r, "ms": warm, "cold_ms": cold,
                           "host_ms": host, "bound_ms": bound,
