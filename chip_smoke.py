@@ -20,14 +20,17 @@ result line:
    inputs, which must give the same bits; B6/B7 also at Run D's shapes, on
    the exact factors of a point cloud shifted off the origin (B6, f32 and
    f64) and twice on the same inputs; B3 also at Runs E and B's shapes
-   (8192 × 16 and 64 × 262144, f64) and twice on the same inputs.
-   Each line prints the measured difference beside its tolerance and the
-   reason for it.
+   (8192 × 16 and 64 × 262144, f64); B4 as L and as Lᵀ (its reversed
+   scan), also at (8192, 16) f64 and on 300 000 rows of one f64 column;
+   B3 and B4 twice on the same inputs and on an x one element off a
+   16-byte boundary, which must give the same bits.  Each line prints the
+   measured difference beside its tolerance and the reason for it.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
    of the FGC kernels against the dense oracle, Run A (``Grid1D(8192)``,
    the paper's §4.1 settings, f32 and f64), Run B (``Grid2D(64)``, f64,
-   adaptive with ε-annealing), the FGC primitives ``apply_L``/``apply_LT``,
-   and the factored plan: Run C (two 10⁶-point clouds, rank 16, f64 and
+   adaptive with ε-annealing), the FGC primitives ``apply_L``/``apply_LT``
+   (and ``apply_LT`` once more under ``torch.profiler``: B4's scan, no
+   flip or copy kernel), and the factored plan: Run C (two 10⁶-point clouds, rank 16, f64 and
    f32, then the same solves kernels and plain side by side, f32 checked
    one step at a time), Run D (``plan_rank="auto"`` on two 10⁵-point
    clouds, f64, growing the rank by restarts) and Run E
@@ -40,9 +43,11 @@ result line:
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
-   Run B's (64, 262144), at Run E's (8192, 16) and at p = 2 on (8192, 1),
-   and B5–B7 in f64 at Runs C and D's shapes (B5 also at E's), with L2
-   warm and flushed.
+   Run B's (64, 262144); B3 and B4 (L and Lᵀ) at 8192², (8192, 16) and
+   (8192, 1) in each dtype beside one ``torch.matmul`` against the dense
+   D̃, L or Lᵀ (the library yardstick) and the ``cumsum`` backend, and at
+   p = 2 on (8192, 1), B4 on 300 000 rows; B5–B7 in f64 at Runs C and D's
+   shapes (B5 also at E's), with L2 warm and flushed.
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -223,27 +228,40 @@ def sinkhorn_case(torch, ops, sk, kind, cost, vec, logw, eps, tol_ulp,
     return max_abs
 
 
-def fgc_case(torch, ops, fs, kind, x, p, label, results):
-    """One FGC kernel against its plain recursion.  The bound of a
-    recursive sum of N terms: |Δy_i| ≤ (p+2)·N·u·(D|x|)_i for each version,
-    so the two differ by at most twice that."""
-    fn = ops.fgc_apply_l if kind == "l" else ops.fgc_apply_dtilde
-    plain = fs.apply_l_plain if kind == "l" else fs.apply_dtilde_plain
-    name = f"fgc_apply_{kind}"
+def fgc_apply(ops, fs, kind):
+    """(wrapper, plain version, launch counter, matrix) of an FGC apply:
+    B3's D̃, B4's L, or B4's Lᵀ (its reversed scan)."""
+    if kind == "dtilde":
+        return ops.fgc_apply_dtilde, fs.apply_dtilde_plain, \
+            "fgc_apply_dtilde", "D̃"
+    rev = kind == "lt"
+    return (lambda x, p: ops.fgc_apply_l(x, p, reverse=rev),
+            lambda x, p: fs.apply_l_plain(x, p, reverse=rev),
+            "fgc_apply_l", "Lᵀ" if rev else "L")
+
+
+def fgc_case(torch, ops, fs, kind, x, p, label, results, plain_device=None):
+    """One FGC kernel against its plain recursion (run on `plain_device`,
+    default x's: the host for a long column, whose row-by-row loop of small
+    ops is faster there).  The bound of a recursive sum of N terms: |Δy_i|
+    ≤ (p+2)·N·u·(M|x|)_i for each version, M the applied matrix (D̃, L or
+    Lᵀ), so the two differ by at most twice that."""
+    fn, plain, name, mat = fgc_apply(ops, fs, kind)
     before = ops.LAUNCHES[name]
     got = fn(x, p)
     torch.cuda.synchronize()
     check(ops.LAUNCHES[name] == before + 1,
           f"{label}: the wrapper did not launch its kernel")
-    want = plain(x, p)
-    scale = plain(x.abs().double(), p)
+    xp = x if plain_device is None else x.to(plain_device)
+    want = plain(xp, p).to(x.device)
+    scale = plain(xp.abs().double(), p).to(x.device)
     n = x.shape[0]
     u = torch.finfo(x.dtype).eps / 2
     ratio = float(((got - want).abs().double()
                    / (n * u * scale).clamp_min(1e-300)).max())
     max_abs = float((got - want).abs().max())
     tol = 2 * (p + 2)
-    say(f"  {label}: max |Δ| {max_abs:.3e}; max |Δ| / (N·u·(D|x|)) = "
+    say(f"  {label}: max |Δ| {max_abs:.3e}; max |Δ| / (N·u·({mat}|x|)) = "
         f"{ratio:.3f}, tolerance {tol} (twice the recursive-sum bound)")
     check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
     check(ratio <= tol, f"{label}: {ratio:.3f} > {tol}")
@@ -316,24 +334,55 @@ def phase_kernels(torch, ops, sk, fs, gen):
                          f"B3 dtilde {tag} x{N_BIG}x{cols} p={p}", errs)
                 fgc_case(torch, ops, fs, "l", x, p,
                          f"B4 L {tag} x{N_BIG}x{cols} p={p}", errs)
-    # B3 at Run E's D_X Q apply (8192, 16) and at Run B's (64, 262144), f64
+                fgc_case(torch, ops, fs, "lt", x, p,
+                         f"B4 LT {tag} x{N_BIG}x{cols} p={p}", errs)
+    # B3 at Run E's D_X Q apply (8192, 16) and at Run B's (64, 262144), f64;
+    # B4 at the first
     for rows, cols in ((N_BIG, 16), (64, 64 * N_RUN_B)):
         x = torch.randn((rows, cols), generator=gen, device=dev,
                         dtype=torch.float64)
         for p in (1, 2):
             fgc_case(torch, ops, fs, "dtilde", x, p,
                      f"B3 dtilde f64 x{rows}x{cols} p={p}", errs)
-    # B3 sums in a fixed order: two launches on one input give equal bits
+            if rows == N_BIG:
+                fgc_case(torch, ops, fs, "l", x, p,
+                         f"B4 L f64 x{rows}x{cols} p={p}", errs)
+                fgc_case(torch, ops, fs, "lt", x, p,
+                         f"B4 LT f64 x{rows}x{cols} p={p}", errs)
+    # The scan sums in a fixed order: two launches on one input give equal
+    # bits, and so does an x one element off a 16-byte boundary
     for rows, cols, dt in ((N_BIG, N_BIG, torch.float32),
                            (N_BIG, 16, torch.float64),
                            (N_BIG, 1, torch.float64),
                            (64, 64 * N_RUN_B, torch.float64)):
         x = torch.randn((rows, cols), generator=gen, device=dev, dtype=dt)
-        same = torch.equal(fs.apply_dtilde_cuda(x, 1),
-                           fs.apply_dtilde_cuda(x, 1))
-        say(f"  B3 dtilde {str(dt)[6:]} x{rows}x{cols} p=1: two launches "
-            f"give {'equal' if same else 'DIFFERENT'} bits")
-        check(same, f"B3 x{rows}x{cols}: two launches differ")
+        shifted = torch.empty(x.numel() + 1, device=dev, dtype=dt)[1:]
+        shifted = shifted.view(x.shape)
+        shifted.copy_(x)
+        for kind, label in (("dtilde", "B3 dtilde"), ("l", "B4 L"),
+                            ("lt", "B4 LT")):
+            fn = fgc_apply(ops, fs, kind)[0]
+            first = fn(x, 1)
+            same = torch.equal(first, fn(x, 1))
+            offset = torch.equal(first, fn(shifted, 1))
+            say(f"  {label} {str(dt)[6:]} x{rows}x{cols} p=1: two launches "
+                f"give {'equal' if same else 'DIFFERENT'} bits; an offset "
+                f"view gives {'the' if offset else 'OTHER'} bits of the "
+                f"aligned x")
+            check(same, f"{label} x{rows}x{cols}: two launches differ")
+            check(offset, f"{label} x{rows}x{cols}: an offset view differs")
+    # B4 on 300 000 rows of one column: over a thousand segments, each carry
+    # lane folding its segments in more than one batch (inputs from a
+    # generator of their own, so the draws above and after stay put)
+    side = torch.Generator(device=dev)
+    side.manual_seed(SEED + 18)
+    x = torch.randn((300_000, 1), generator=side, device=dev,
+                    dtype=torch.float64)
+    for p in (1, 2):
+        for kind, label in (("l", "B4 L"), ("lt", "B4 LT")):
+            fgc_case(torch, ops, fs, kind, x, p,
+                     f"{label} f64 x300000x1 p={p}", errs,
+                     plain_device="cpu")
     return errs
 
 
@@ -746,7 +795,40 @@ def phase_main_path(torch, np, ops, core, gen):
     check(bool(torch.isfinite(lx).all() and torch.isfinite(ltx).all()),
           "apply_L/apply_LT: non-finite output")
     launches["fgc_apply_l"] += fgc_counts["fgc_apply_l"]
+    profile_no_copies(torch, "apply_LT kernel route", lambda: core.fgc.apply_LT(
+        x, axis=0, power=1, backend="kernel"))
     return launches, walls
+
+
+def profile_no_copies(torch, label, fn, calls=4):
+    """`calls` more calls under torch.profiler (which loses the first few
+    device activities of a window: one call is not enough): their device
+    activities must hold B4's scan and no flip or copy kernel (Lᵀ as B4's
+    reversed scan, not flip(L flip x)).  Not measured where the profiler
+    records no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    if not names:
+        say(f"  {label} profiled: not measured (the profiler recorded no "
+            f"device events)")
+        return
+    copies = [n for n in names if "flip" in n.lower() or "copy" in n.lower()]
+    kinds = {}
+    for n in names:
+        kinds[kernel_label(n)] = kinds.get(kernel_label(n), 0) + 1
+    say(f"  {label} profiled over {calls} calls: {len(names)} device "
+        f"activities ({'; '.join(f'{c}× {k}' for k, c in kinds.items())}); "
+        f"flip or copy kernels: {len(copies)}")
+    check(any("scan_pass" in n for n in names),
+          f"{label}: B4's scan is not in the trace")
+    check(not copies, f"{label}: launched {sorted(set(copies))}")
 
 
 def compare_lowrank(torch, label, rk, rp, value_rtol, l1_tol):
@@ -1073,11 +1155,13 @@ def phase_lowrank_path(torch, np, ops, core):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def phase_times(torch, ops, sk, fs, gen):
+def phase_times(torch, ops, sk, fs, core, gen):
+    """Returns ({key: (ms, plain ms, bound ms, bound by)}, {key: library
+    ms})."""
     say("phase 4: times (CUDA events, after a warm-up; plain versions are "
         "no yardstick of speed: they repeat the arithmetic in PyTorch ops)")
     dev = "cuda"
-    rows = {}
+    rows, library = {}, {}
     for m, n, dt, cdt, tag in half_step_cases(torch):
         cost = torch.rand((1, m, n), generator=gen, device=dev,
                           dtype=dt).to(cdt)
@@ -1101,25 +1185,40 @@ def phase_times(torch, ops, sk, fs, gen):
             say(f"  {label} C{m}x{n}: {ms:.5f} ms, bound {b:.5f} ms "
                 f"({by}), {b / ms:.1%} of bound; plain {pms:.5f} ms")
         del cost
+    # B3 and B4 (L, Lᵀ) at p = 1, each beside the library yardstick: one
+    # torch.matmul against the dense D̃, L or Lᵀ (the "dense" backend's
+    # product; the matrix is built before the timing), and as a note the
+    # default "cumsum" backend's call
     for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-        for cols in (N_BIG, 1):
+        p = 1
+        lo = core.fgc.lower_toeplitz(N_BIG, p, dt, dev)
+        dense = {"dtilde": lo + lo.T, "l": lo, "lt": lo.T.contiguous()}
+        cumsum = {"dtilde": core.fgc.apply_abs_power, "l": core.fgc.apply_L,
+                  "lt": core.fgc.apply_LT}
+        for cols in (N_BIG, 16, 1):
             x = torch.randn((N_BIG, cols), generator=gen, device=dev,
                             dtype=dt)
-            p = 1
             nbytes = 2 * x.numel() * x.element_size()
-            for kind in ("dtilde", "l"):
+            for kind in ("dtilde", "l", "lt"):
                 streams = 2 if kind == "dtilde" else 1
                 flops = streams * ((p + 1) * (p + 2)) * x.numel()
-                wrap = getattr(ops, f"fgc_apply_{kind}")
-                plain = getattr(fs, f"apply_{kind}_plain")
-                ms = time_ms(torch, lambda: wrap(x, p), reps=5)
+                wrap, plain = fgc_apply(ops, fs, kind)[:2]
+                ms = time_ms(torch, lambda: wrap(x, p), reps=20)
                 pms = time_ms(torch, lambda: plain(x, p), reps=1, warmup=0)
+                lib = time_ms(torch, lambda: dense[kind] @ x,
+                              reps=3 if cols == N_BIG else 20)
+                cs = time_ms(torch, lambda: cumsum[kind](x, 0, p, "cumsum"),
+                             reps=5)
                 b, by = bound_ms(nbytes, flops, str(dt).split(".")[-1])
                 key = f"{'B3' if kind == 'dtilde' else 'B4'} {kind} {tag} " \
                       f"x{N_BIG}x{cols}"
                 rows[key] = (ms, pms, b, by)
+                library[key] = lib
                 say(f"  {key} p={p}: {ms:.5f} ms, bound {b:.5f} ms ({by}), "
-                    f"{b / ms:.1%} of bound; plain {pms:.5f} ms")
+                    f"{b / ms:.1%} of bound; plain {pms:.5f} ms; library "
+                    f"(matmul against the dense matrix) {lib:.5f} ms; "
+                    f"cumsum backend {cs:.5f} ms")
+        del lo, dense
     # B3 at Run B's own shape: Grid2D(64) sweeps one 64-long axis of the
     # unfolded (64, 64, 4096) plan, that is (64, 262144) columns
     x = torch.randn((64, 64 * N_RUN_B), generator=gen, device=dev,
@@ -1134,21 +1233,29 @@ def phase_times(torch, ops, sk, fs, gen):
         rows[key] = (ms, pms, b, by)
         say(f"  {key} (Run B's shape): {ms:.5f} ms, bound {b:.5f} ms "
             f"({by}), {b / ms:.1%} of bound; plain {pms:.5f} ms")
-    # B3 at Run E's D_X Q apply, and at p = 2 on the squared-distance shape
-    for cols, dt, p in ((16, torch.float64, 1), (1, torch.float32, 2),
-                        (1, torch.float64, 2)):
-        x = torch.randn((N_BIG, cols), generator=gen, device=dev, dtype=dt)
-        ms = time_ms(torch, lambda: ops.fgc_apply_dtilde(x, p), reps=20)
-        pms = time_ms(torch, lambda: fs.apply_dtilde_plain(x, p), reps=1,
-                      warmup=0)
+    # the scan at p = 2 on the squared-distance shape, and B4 on 300 000
+    # rows of one f64 column
+    for rows_, dt, p in ((N_BIG, torch.float32, 2), (N_BIG, torch.float64, 2),
+                         (300_000, torch.float64, 1)):
+        x = torch.randn((rows_, 1), generator=gen, device=dev, dtype=dt)
         name = str(dt).split(".")[-1]
-        b, by = bound_ms(2 * x.numel() * x.element_size(),
-                         2.0 * (p + 1) * (p + 2) * x.numel(), name)
-        key = f"B3 dtilde {name[:1]}{name[-2:]} x{N_BIG}x{cols} p={p}"
-        rows[key] = (ms, pms, b, by)
-        say(f"  {key}: {ms:.5f} ms, bound {b:.5f} ms ({by}), "
-            f"{b / ms:.1%} of bound; plain {pms:.5f} ms")
-    return rows
+        for kind in ("dtilde", "l", "lt") if rows_ == N_BIG else ("l", "lt"):
+            wrap, plain = fgc_apply(ops, fs, kind)[:2]
+            ms = time_ms(torch, lambda: wrap(x, p), reps=20)
+            b, by = bound_ms(2 * x.numel() * x.element_size(),
+                             (2.0 if kind == "dtilde" else 1.0) * (p + 1)
+                             * (p + 2) * x.numel(), name)
+            key = f"{'B3' if kind == 'dtilde' else 'B4'} {kind} " \
+                  f"{name[:1]}{name[-2:]} x{rows_}x1 p={p}"
+            if rows_ == N_BIG:
+                pms = time_ms(torch, lambda: plain(x, p), reps=1, warmup=0)
+                rows[key] = (ms, pms, b, by)
+                plain_note = f"plain {pms:.5f} ms"
+            else:
+                plain_note = "plain not timed (300 000 steps of a Python loop)"
+            say(f"  {key}: {ms:.5f} ms, bound {b:.5f} ms ({by}), "
+                f"{b / ms:.1%} of bound; {plain_note}")
+    return rows, library
 
 
 def lowrank_times(torch, ops, lr, gen):
@@ -1313,7 +1420,8 @@ def main() -> int:
         for k, v in lr_launches.items():
             launches[k] += v
         walls.update(lr_walls)
-        rows = phase_times(torch, ops, sinkhorn_step, fgc_scan, gen)
+        rows, library = phase_times(torch, ops, sinkhorn_step, fgc_scan,
+                                    core, gen)
         rows.update(lowrank_times(torch, ops, lr_step, gen))
         lowrank_shape_times(torch, ops, gen)
         say("  runs (host clock around synchronised work): " + ", ".join(
@@ -1329,7 +1437,7 @@ def main() -> int:
                             "launches": launches[name],
                             "max_abs_err": errs[err_key], "ms": ms,
                             "plain_ms": pms, "bound_ms": b, "bound_by": by,
-                            "library_ms": None})
+                            "library_ms": library.get(time_key)})
         say(f"card: {card}")
         say(json.dumps({"kernels": kernels}))
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError) as exc:

@@ -25,7 +25,11 @@ Backends
 
 Every backend works on the target axis moved to the front and the rest
 flattened (`_to_front`); an apply along axis 1 therefore runs on a
-transposed contiguous copy under ``kernel``.
+transposed contiguous copy under ``kernel``.  ``apply_LT`` is the
+reference's flip expression flip(L(flip x)) on every backend but
+``kernel``, where the L kernel runs its scan over the rows bottom up
+(``reverse=True``): no flipped copy, and on a CPU tensor the plain
+version of that same identity.
 """
 from __future__ import annotations
 
@@ -124,8 +128,8 @@ def _apply_L_blocked(x2, p: int, block: int = 16):
     return y.reshape(nb * r, b)[:n]
 
 
-def _apply_L_kernel(x2, p: int):
-    return kops.fgc_apply_l(x2.contiguous(), p)
+def _apply_L_kernel(x2, p: int, reverse: bool = False):
+    return kops.fgc_apply_l(x2.contiguous(), p, reverse)
 
 
 _L_BACKENDS = {
@@ -210,7 +214,10 @@ def apply_LT(x, axis: int = 0, power: int = 1, backend: str = "cumsum"):
     """y = Lᵀ x along ``axis`` — reversal identity (paper §3)."""
     fn = _backend(_L_BACKENDS, backend)
     x2, shape, axis = _to_front(x, axis)
-    y2 = torch.flip(fn(torch.flip(x2, (0,)), power), (0,))
+    if backend == "kernel":
+        y2 = _apply_L_kernel(x2, power, reverse=True)
+    else:
+        y2 = torch.flip(fn(torch.flip(x2, (0,)), power), (0,))
     return _from_front(y2, shape, axis)
 
 

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernels of repro/kernels/fgc_scan.py:
 //   fgc_apply_l       <- _fgc_kernel / fgc_apply_l_pallas
-//                        y = L x,  L[i,j] = (i-j)^p for i > j
+//                        y = L x,  L[i,j] = (i-j)^p for i > j  (or L^T x)
 //   fgc_apply_dtilde  <- _dtilde_kernel / fgc_apply_dtilde_pallas
 //                        y = (L + L^T) x,  D~[i,j] = |i-j|^p
 // along axis 0 of a row-major (N, B) array.
@@ -18,7 +18,9 @@
 // Bound: the bytes of x read plus y written (p is small, so the (p+1)^2 / 2
 // multiply-adds per element and stream are far below the card's rate).
 //
-// B3, the fused D~ apply: a segmented moment scan.
+// Both are one segmented moment scan (scan_pass, scan_carry) with NS
+// streams: B3, the fused D~ apply, takes both (NS = 2), B4, the L apply, the
+// forward stream alone (NS = 1).
 //   * The reference carries the (p+1)-moment state across a sequential grid
 //     axis of 128-row blocks: a_end = P_R a_start + T x_block.  CUDA blocks
 //     run in no order, so the rows are cut into segments of S = groups * CH
@@ -36,28 +38,33 @@
 //     neighbour additions (no coefficients).  A state after rows [a, b) from
 //     a start state c is P_(b-a) c plus the state from zero: segments
 //     compose.
-//   * Pass 1 (dtilde_pass<..., 1, ...>, with two or more segments): each
-//     thread takes both streams over its rows from zero as weighted sums
+//   * Pass 1 (scan_pass<..., 1, ...>, with two or more segments): each
+//     thread takes its streams over its rows from zero as weighted sums
 //     (f[s] = sum_j (CH - j)^s x_j, m[s] = sum_j (j + 1)^s x_j, exact
 //     constant weights); the block publishes them, and the last group folds
 //     the column's groups in order into the segment's forward state at its
-//     bottom, the first group into its mirrored state at its top: 2(p+1) f64
-//     values a column and segment.
-//   * Carry (dtilde_carry): for each column, the start states of every
-//     segment, c_{k+1} = P_S c_k + A_k from the top and the mirror of that
-//     from the bottom.  `lanes` threads share a column, each folding
+//     bottom, the first group (NS = 2) into its mirrored state at its top:
+//     NS (p+1) f64 values a column and segment.
+//   * Carry (scan_carry): for each column, the start states of every
+//     segment, c_{k+1} = P_S c_k + A_k from the top and (NS = 2) the mirror
+//     of that from the bottom.  `lanes` threads share a column, each folding
 //     `lane_segs` consecutive segments, then a Hillis-Steele scan over the
 //     lanes in shared memory (shift S * lane_segs * d at distance d), then
 //     each re-walks its segments from its carry, overwriting the totals with
 //     start states in place.
-//   * Pass 2 (dtilde_pass<..., 2, ...>): the same chunk states and publish;
+//   * Pass 2 (scan_pass<..., 2, ...>): the same chunk states and publish;
 //     each thread folds the groups above its rows onto the segment's forward
-//     carry and those below onto its mirrored carry, runs the forward
-//     stream down its rows (L x rounded to T, held in registers), then the
-//     mirrored stream up them, and writes each y once, rounded as
-//     y = T(double(T(Lx)) + L^T x) (the plain version's rounding).
+//     carry (and, NS = 2, those below onto its mirrored carry).  B4 runs the
+//     forward stream down its rows and writes y = T(a[p]) once a row.  B3
+//     runs the forward stream down its rows (L x rounded to T, held in
+//     registers), then the mirrored stream up them, and writes each y once,
+//     rounded as y = T(double(T(Lx)) + L^T x) (the plain version's rounding).
 //     So x is read from device memory twice and y written once (x once with
 //     a single segment), where the bound counts x once and y once.
+//   * B4's L^T x is the forward scan over a row map (`rev`, a run-time
+//     flag): row v of the scan is row N - 1 - v of x and of y.  The staged
+//     tile holds x's rows bottom up, so nothing is copied or flipped; the
+//     flag moves addresses only, and the sums are L's on the mirrored x.
 //   * Both passes are one wave of blocks (the plan's grids, from the
 //     runtime's occupancy) that walk the items in turn, the next item's
 //     tile (and its carries) in flight by cp.async while they work on one:
@@ -72,9 +79,6 @@
 //     zero-filled in the staged tile (rows past N come after every real
 //     forward state, and below N the mirrored state starts at 0), and
 //     nothing is stored for them.
-//
-// B4, the L apply: one thread a column walks all N rows with the state in
-// registers (p a template parameter, 0..8).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,59 +86,12 @@
 
 namespace {
 
-__host__ __device__ constexpr int binom(int n, int k) {
-  return (k < 0 || k > n) ? 0 : (k == 0 || k == n) ? 1
-                                : binom(n - 1, k - 1) + binom(n - 1, k);
-}
-
-constexpr int THREADS = 128;
 constexpr int MAX_P = 8;
-
-// ---------------------------------------------------------------------------
-// B4: y = L x, one thread a column
-// ---------------------------------------------------------------------------
-
-// The forward stream of the recursion over the rows of column `col`.
-template <typename T, int P>
-__device__ __forceinline__ void stream(const T* __restrict__ x,
-                                       T* __restrict__ y, int n, int cols,
-                                       int col) {
-  double a[P + 1];
-#pragma unroll
-  for (int s = 0; s <= P; ++s) a[s] = 0.0;
-#pragma unroll 4
-  for (int i = 0; i < n; ++i) {
-    const int64_t o = (int64_t)i * cols + col;
-    const double xi = (double)x[o];
-    const double yi = a[P];
-    // update from the highest moment down: a[r] needs the old a[s], s <= r
-#pragma unroll
-    for (int r = P; r >= 0; --r) {
-      double acc = 0.0;
-#pragma unroll
-      for (int s = 0; s <= r; ++s) acc += double(binom(r, s)) * a[s];
-      a[r] = acc + xi;
-    }
-    y[o] = (T)yi;
-  }
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(THREADS)
-fgc_kernel(const T* __restrict__ x, T* __restrict__ y, int n, int cols) {
-  const int col = blockIdx.x * THREADS + threadIdx.x;
-  if (col >= cols) return;
-  stream<T, P>(x, y, n, cols, col);
-}
-
-// ---------------------------------------------------------------------------
-// B3: y = (L + L^T) x, the segmented scan
-// ---------------------------------------------------------------------------
 
 // Rows of a column a thread takes are the template parameter CH: 32 (f32
 // only) where the card still gets two items an SM, else 16.
-constexpr int DT_THREADS = 256;   // most threads a block of the D~ passes
-constexpr int MAX_TC = 32;        // most columns a tile of the D~ passes
+constexpr int DT_THREADS = 256;   // most threads a block of the passes
+constexpr int MAX_TC = 32;        // most columns a tile of the passes
 constexpr int CARRY_THREADS = 256;  // most threads a block of the carry
 constexpr int CARRY_BATCH = 4;    // segments a carry lane loads at once
 // A pass block's ring: the item it works on, the next one in flight, and a
@@ -196,9 +153,10 @@ __device__ __forceinline__ void zero(double (&d)[P + 1]) {
   for (int s = 0; s <= P; ++s) d[s] = 0.0;
 }
 
-// Both states of every thread into shared memory, after a barrier (so no
-// thread still reads what the block published before).
-template <int P>
+// The NS states of every thread (f, and m with two streams) into shared
+// memory, after a barrier (so no thread still reads what the block
+// published before).
+template <int P, int NS>
 __device__ __forceinline__ void publish(const double (&f)[P + 1],
                                         const double (&m)[P + 1],
                                         double* sh) {
@@ -207,7 +165,7 @@ __device__ __forceinline__ void publish(const double (&f)[P + 1],
 #pragma unroll
   for (int s = 0; s <= P; ++s) {
     sh[s * nt + t] = f[s];
-    sh[(P + 1 + s) * nt + t] = m[s];
+    if constexpr (NS == 2) sh[(P + 1 + s) * nt + t] = m[s];
   }
   __syncthreads();
 }
@@ -221,19 +179,19 @@ __device__ __forceinline__ void fetch(double (&v)[P + 1], const double* sh,
 
 // Inclusive scans over the `groups` groups of a block for each of its `tc`
 // columns (thread t = g * tc + c), each group's state covering `len` rows: f
-// from group 0 down, m from the last group up.  Hillis-Steele: at distance d
-// the partner's state is shifted past the d * len rows of this one's (len
-// a power of two, inv = 1 / len).  The partner at each level is fixed, so
-// the order of sums is too.
-template <int P>
+// from group 0 down, m (NS = 2) from the last group up.  Hillis-Steele: at
+// distance d the partner's state is shifted past the d * len rows of this
+// one's (len a power of two, inv = 1 / len).  The partner at each level is
+// fixed, so the order of sums is too.
+template <int P, int NS>
 __device__ void group_scan(double (&f)[P + 1], double (&m)[P + 1], double* sh,
                            int g, int groups, int tc, double len,
                            double inv) {
   const int t = threadIdx.x;
   for (int d = 1; d < groups; d <<= 1, len *= 2.0, inv *= 0.5) {
-    publish<P>(f, m, sh);
+    publish<P, NS>(f, m, sh);
     double pf[P + 1], pm[P + 1];
-    const bool hf = g >= d, hm = g + d < groups;
+    const bool hf = g >= d, hm = NS == 2 && g + d < groups;
     if (hf) fetch<P>(pf, sh, t - d * tc);
     if (hm) fetch<P>(pm, sh + (P + 1) * blockDim.x, t + d * tc);
     if (hf) shift_add<P>(f, pf, len, inv);
@@ -244,17 +202,18 @@ __device__ void group_scan(double (&f)[P + 1], double (&m)[P + 1], double* sh,
 // After group_scan: the states before this group, from the neighbours'
 // inclusive ones (the forward state of group g - 1, the mirrored state of
 // group g + 1); the first and last groups keep what the caller put there.
-template <int P>
+template <int P, int NS>
 __device__ __forceinline__ void exclusive(const double (&f)[P + 1],
                                           const double (&m)[P + 1],
                                           double* sh, int g, int groups,
                                           int tc, double (&ef)[P + 1],
                                           double (&em)[P + 1]) {
   if (groups == 1) return;
-  publish<P>(f, m, sh);
+  publish<P, NS>(f, m, sh);
   const int t = threadIdx.x;
   if (g > 0) fetch<P>(ef, sh, t - tc);
-  if (g + 1 < groups) fetch<P>(em, sh + (P + 1) * blockDim.x, t + tc);
+  if (NS == 2 && g + 1 < groups)
+    fetch<P>(em, sh + (P + 1) * blockDim.x, t + tc);
 }
 
 // After publish: a carried down the groups [h0, h1) of this thread's column
@@ -309,9 +268,14 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// The work item of a D~ pass: segment item / tiles of column tile
+// Row v of the scan in x and y: v, or n - 1 - v under B4's row map (L^T).
+__device__ __forceinline__ int64_t row_at(int64_t v, int n, bool rev) {
+  return rev ? (int64_t)n - 1 - v : v;
+}
+
+// The work item of a pass: segment item / tiles of column tile
 // item % tiles; its first row and column, and this thread's column and
-// first row in it.
+// first row in it (rows of the scan, before the row map).
 struct Item {
   int seg, col0, col;
   int64_t top, row0;
@@ -326,15 +290,15 @@ struct Item {
 };
 
 // Stage an item's tile (its groups * CH rows of tc columns) into
-// shared memory, row-major; rows past N and columns past B are zero-filled.
-// VEC: 16-byte cp.async over the whole tile, a warp's copies covering
-// whole rows (rows of x and of the tile 16-byte aligned); else each thread
-// copies the CH elements of its own column and rows, one by one, and
-// reads only those.
+// shared memory, row-major in the scan's order; rows past N and columns
+// past B are zero-filled.  VEC: 16-byte cp.async over the whole tile, a
+// warp's copies covering whole rows (rows of x and of the tile 16-byte
+// aligned); else each thread copies the CH elements of its own column and
+// rows, one by one, and reads only those.
 template <typename T, int CH, bool VEC>
 __device__ __forceinline__ void stage_tile(T* tile, const T* __restrict__ x,
                                           const Item& it, int n, int cols,
-                                          int tc) {
+                                          int tc, bool rev) {
   const int nt = blockDim.x;
   if (VEC) {
     constexpr int E = 16 / sizeof(T);              // elements a vector
@@ -345,32 +309,35 @@ __device__ __forceinline__ void stage_tile(T* tile, const T* __restrict__ x,
       const int r = q / vpr, e = (q % vpr) * E;
       const bool ok = it.top + r < n && it.col0 + e < cols;
       cp_async16(tile + r * tc + e,
-                 ok ? x + (it.top + r) * cols + it.col0 + e : x, ok);
+                 ok ? x + row_at(it.top + r, n, rev) * cols + it.col0 + e
+                    : x, ok);
     }
   } else {
     const int c = threadIdx.x % tc, g = threadIdx.x / tc;
     const int64_t rem = it.col < cols ? n - it.row0 : 0;
-    const T* src = x + (it.col < cols ? it.row0 * cols + it.col : 0);
+    const T* src = x + (rem > 0 ? row_at(it.row0, n, rev) * cols + it.col
+                                : 0);
+    const int64_t step = rev ? -(int64_t)cols : (int64_t)cols;
     T* dst = tile + g * CH * tc + c;
 #pragma unroll 4
     for (int j = 0; j < CH; ++j) {
       const bool ok = j < rem;
       cp_async_elem<sizeof(T)>(dst + j * tc, ok ? src : x, ok);
-      src += cols;
+      src += step;
     }
   }
 }
 
-// Both streams over a staged chunk from zero: f at its bottom, m at its
-// top, as the sums f[s] = sum_j (CH - j)^s x_j and m[s] = sum_j (j + 1)^s
-// x_j (j from the chunk's first row; the weights are exact constants), so
-// one pass down the chunk takes both.
-template <typename T, int P, int CH>
+// The streams over a staged chunk from zero: f at its bottom and (NS = 2)
+// m at its top, as the sums f[s] = sum_j (CH - j)^s x_j and m[s] = sum_j
+// (j + 1)^s x_j (j from the chunk's first row; the weights are exact
+// constants), so one pass down the chunk takes both.
+template <typename T, int P, int CH, int NS>
 __device__ __forceinline__ void chunk_states(const T* v, int stride,
                                              double (&f)[P + 1],
                                              double (&m)[P + 1]) {
   zero<P>(f);
-  zero<P>(m);
+  if constexpr (NS == 2) zero<P>(m);
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
     const double xj = (double)v[j * stride];
@@ -378,44 +345,45 @@ __device__ __forceinline__ void chunk_states(const T* v, int stride,
 #pragma unroll
     for (int s = 0; s <= P; ++s) {
       f[s] += wf * xj;
-      m[s] += wm * xj;
+      if constexpr (NS == 2) m[s] += wm * xj;
       wf *= (double)(CH - j);
       wm *= (double)(j + 1);
     }
   }
 }
 
-// st[((seg * 2 + stream) * (P + 1) + s) * cols + col], stream 0 forward
+// st[((seg * NS + stream) * (P + 1) + s) * cols + col], stream 0 forward
+template <int NS>
 __device__ __forceinline__ int64_t st_at(int seg, int stream, int s, int np1,
                                          int cols, int col) {
-  return (((int64_t)seg * 2 + stream) * np1 + s) * cols + col;
+  return (((int64_t)seg * NS + stream) * np1 + s) * cols + col;
 }
 
-template <int P>
+template <int P, int NS>
 __device__ __forceinline__ void st_load(double (&v)[P + 1],
                                         const double* __restrict__ st,
                                         int seg, int stream, int cols,
                                         int col) {
 #pragma unroll
   for (int s = 0; s <= P; ++s)
-    v[s] = st[st_at(seg, stream, s, P + 1, cols, col)];
+    v[s] = st[st_at<NS>(seg, stream, s, P + 1, cols, col)];
 }
 
-template <int P>
+template <int P, int NS>
 __device__ __forceinline__ void st_store(const double (&v)[P + 1],
                                          double* __restrict__ st, int seg,
                                          int stream, int cols, int col) {
 #pragma unroll
   for (int s = 0; s <= P; ++s)
-    st[st_at(seg, stream, s, P + 1, cols, col)] = v[s];
+    st[st_at<NS>(seg, stream, s, P + 1, cols, col)] = v[s];
 }
 
 // Dynamic shared memory of a pass block of tc * groups threads: the
-// groups' two states a thread, in pass 2 SLOTS slots of the tile's carries
-// (two states a column), then SLOTS tiles of CH elements a thread.
-template <typename T, int P, int PASS, int CH>
+// groups' NS states a thread, in pass 2 SLOTS slots of the tile's carries
+// (NS states a column), then SLOTS tiles of CH elements a thread.
+template <typename T, int P, int PASS, int CH, int NS>
 constexpr size_t pass_smem(int tc, int groups) {
-  return (size_t)tc * (2 * (P + 1) * sizeof(double) *
+  return (size_t)tc * (NS * (P + 1) * sizeof(double) *
                            (groups + (PASS == 2 ? SLOTS : 0)) +
                        SLOTS * CH * sizeof(T) * groups);
 }
@@ -423,7 +391,7 @@ constexpr size_t pass_smem(int tc, int groups) {
 // Stage the item's carries for its column's threads ([stream][s][column of
 // the tile]): the first group's thread copies the forward state, the last
 // group's the mirrored state.
-template <int P>
+template <int P, int NS>
 __device__ __forceinline__ void stage_carry(double* cs,
                                             const double* __restrict__ st,
                                             const Item& it, int g, int groups,
@@ -431,33 +399,36 @@ __device__ __forceinline__ void stage_carry(double* cs,
   const int c = threadIdx.x % tc;
   const bool live = it.col < cols;
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
+  for (int w = 0; w < NS; ++w) {
     if (g != (w == 0 ? 0 : groups - 1)) continue;
 #pragma unroll
     for (int s = 0; s <= P; ++s)
       cp_async_elem<8>(cs + (w * (P + 1) + s) * tc + c,
-                       live ? st + st_at(it.seg, w, s, P + 1, cols, it.col)
+                       live ? st + st_at<NS>(it.seg, w, s, P + 1, cols,
+                                             it.col)
                             : st, live);
   }
 }
 
-// Pass 1: each segment's forward state at its bottom and mirrored state at
-// its top, from zero, into st.  Pass 2: y, from the segments' start states
-// in st (null with a single segment: zero).  A block walks the items
-// blockIdx.x, + gridDim.x, ..., with the next one's tile in flight by
-// cp.async while it works on one.
-template <typename T, int P, int PASS, int CH, bool VEC>
+// Pass 1: each segment's forward state at its bottom and (NS = 2)
+// mirrored state at its top, from zero, into st.  Pass 2: y, from the
+// segments' start states in st (null with a single segment: zero).  A
+// block walks the items blockIdx.x, + gridDim.x, ..., with the next one's
+// tile in flight by cp.async while it works on one.  rev (NS = 1 only):
+// the row map of L^T.
+template <typename T, int P, int PASS, int CH, bool VEC, int NS>
 __global__ void __launch_bounds__(DT_THREADS)
-dtilde_pass(const T* __restrict__ x, double* __restrict__ st,
-            T* __restrict__ y, int n, int cols, int tc, int groups, int tiles,
-            int items) {
+scan_pass(const T* __restrict__ x, double* __restrict__ st,
+          T* __restrict__ y, int n, int cols, int tc, int groups, int tiles,
+          int items, bool rev) {
   constexpr bool APPLY = PASS == 2;
   extern __shared__ double dyn[];
   const int nt = blockDim.x, g = threadIdx.x / tc, c = threadIdx.x % tc;
   const bool carried = APPLY && st != nullptr;
-  constexpr int CS = 2 * (P + 1);        // carry values a column and slot
+  rev = NS == 1 && rev;
+  constexpr int CS = NS * (P + 1);       // carry values a column and slot
   double* sh = dyn;
-  double* cring = dyn + 2 * (P + 1) * nt;
+  double* cring = dyn + NS * (P + 1) * nt;
   T* ring = reinterpret_cast<T*>(cring + (APPLY ? SLOTS * CS * tc : 0));
   // stage item blockIdx.x + i * gridDim.x into slot i % SLOTS, one cp.async
   // group each (an empty group past the last item).  The item worked on in
@@ -468,10 +439,10 @@ dtilde_pass(const T* __restrict__ x, double* __restrict__ st,
     if (at < items) {
       const Item it(at, tiles, tc, groups, CH);
       stage_tile<T, CH, VEC>(ring + (i % SLOTS) * CH * nt, x, it, n, cols,
-                             tc);
+                             tc, rev);
       if (carried)
-        stage_carry<P>(cring + (i % SLOTS) * CS * tc, st, it, g, groups, tc,
-                       cols);
+        stage_carry<P, NS>(cring + (i % SLOTS) * CS * tc, st, it, g, groups,
+                           tc, cols);
     }
     cp_async_commit();
   };
@@ -486,67 +457,82 @@ dtilde_pass(const T* __restrict__ x, double* __restrict__ st,
     const Item it(item, tiles, tc, groups, CH);
     const bool live = it.col < cols;
     double f[P + 1], m[P + 1], a[P + 1], b[P + 1];
-    chunk_states<T, P, CH>(v, tc, f, m);
+    chunk_states<T, P, CH, NS>(v, tc, f, m);
     // every group's chunk states to the block; each thread then folds the
     // groups above its chunk onto the segment's forward carry and those
     // below onto the mirrored carry, in order (pass 1: the last group all of
     // them forward, the first all of them mirrored, from zero).  After the
     // barriers in publish every thread's copies of this item have landed.
-    publish<P>(f, m, sh);
+    publish<P, NS>(f, m, sh);
     zero<P>(a);
     zero<P>(b);
     if (carried) {
 #pragma unroll
       for (int s = 0; s <= P; ++s) {
         a[s] = cs[s * tc];
-        b[s] = cs[(P + 1 + s) * tc];
+        if constexpr (NS == 2) b[s] = cs[(P + 1 + s) * tc];
       }
     }
     if (!APPLY) {
       if (live && g == groups - 1) {
         zero<P>(a);
         fold_down<P, CH>(a, sh, c, tc, 0, groups);
-        st_store<P>(a, st, it.seg, 0, cols, it.col);
+        st_store<P, NS>(a, st, it.seg, 0, cols, it.col);
       }
-      if (live && g == 0) {
-        zero<P>(b);
-        fold_up<P, CH>(b, sh, c, tc, 0, groups);
-        st_store<P>(b, st, it.seg, 1, cols, it.col);
+      if constexpr (NS == 2) {
+        if (live && g == 0) {
+          zero<P>(b);
+          fold_up<P, CH>(b, sh, c, tc, 0, groups);
+          st_store<P, NS>(b, st, it.seg, 1, cols, it.col);
+        }
       }
       continue;
     }
     fold_down<P, CH>(a, sh, c, tc, 0, g);
-    fold_up<P, CH>(b, sh, c, tc, g + 1, groups);
-    // the forward stream down the chunk (L x, rounded to T), then the
-    // mirrored stream up it: y_i = T(double(T(Lx)_i) + L^T x_i)
-    T lo[CH];
+    if constexpr (NS == 1) {
+      // the stream down the chunk: y_i = T(a[p]) before row i joins
+      const int64_t rem = live ? n - it.row0 : 0;
+      T* dst = y + (rem > 0 ? row_at(it.row0, n, rev) * cols + it.col : 0);
+      const int64_t step = rev ? -(int64_t)cols : (int64_t)cols;
 #pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      lo[j] = (T)a[P];
-      absorb<P>(a, (double)v[j * tc]);
-    }
-    const int64_t rem = live ? n - it.row0 : 0;
-    T* dst = y + (live ? it.row0 * cols + it.col : 0) +
-             (int64_t)(CH - 1) * cols;
+      for (int j = 0; j < CH; ++j) {
+        if (j < rem) *dst = (T)a[P];
+        absorb<P>(a, (double)v[j * tc]);
+        dst += step;
+      }
+    } else {
+      fold_up<P, CH>(b, sh, c, tc, g + 1, groups);
+      // the forward stream down the chunk (L x, rounded to T), then the
+      // mirrored stream up it: y_i = T(double(T(Lx)_i) + L^T x_i)
+      T lo[CH];
 #pragma unroll
-    for (int j = CH - 1; j >= 0; --j) {
-      if (j < rem) *dst = (T)((double)lo[j] + b[P]);
-      absorb<P>(b, (double)v[j * tc]);
-      dst -= cols;
+      for (int j = 0; j < CH; ++j) {
+        lo[j] = (T)a[P];
+        absorb<P>(a, (double)v[j * tc]);
+      }
+      const int64_t rem = live ? n - it.row0 : 0;
+      T* dst = y + (live ? it.row0 * cols + it.col : 0) +
+               (int64_t)(CH - 1) * cols;
+#pragma unroll
+      for (int j = CH - 1; j >= 0; --j) {
+        if (j < rem) *dst = (T)((double)lo[j] + b[P]);
+        absorb<P>(b, (double)v[j * tc]);
+        dst -= cols;
+      }
     }
   }
 }
 
-// The carry: each segment's start states (forward at its top, mirrored at
-// its bottom), in place of its totals.  Thread t = l * ctc + c takes column
-// c of the block's tile and segments [l * lane_segs, (l + 1) * lane_segs),
-// CARRY_BATCH of them at a time in registers (loaded once when they fit
-// one batch).  seg_rows is a power of two, seg_inv = 1 / seg_rows.
-template <int P>
+// The carry: each segment's start states (forward at its top and, NS = 2,
+// mirrored at its bottom), in place of its totals.  Thread t = l * ctc + c
+// takes column c of the block's tile and segments [l * lane_segs, (l + 1) *
+// lane_segs), CARRY_BATCH of them at a time in registers (loaded once when
+// they fit one batch).  seg_rows is a power of two, seg_inv = 1 / seg_rows.
+template <int P, int NS>
 __global__ void __launch_bounds__(CARRY_THREADS)
-dtilde_carry(double* __restrict__ st, int cols, int segments, int ctc,
-             int lanes, int lane_segs, double seg_rows, double seg_inv) {
-  __shared__ double sh[2 * (P + 1) * CARRY_THREADS];
+scan_carry(double* __restrict__ st, int cols, int segments, int ctc,
+           int lanes, int lane_segs, double seg_rows, double seg_inv) {
+  __shared__ double sh[NS * (P + 1) * CARRY_THREADS];
   const int c = threadIdx.x % ctc, l = threadIdx.x / ctc;
   const int col = blockIdx.x * ctc + c;
   const bool live = col < cols;
@@ -562,11 +548,11 @@ dtilde_carry(double* __restrict__ st, int cols, int segments, int ctc,
     for (int q = 0; q < CARRY_BATCH; ++q) {
       const int j = bi * CARRY_BATCH + q, k = k0 + j;
       if (live && j < lane_segs && k < segments) {
-        st_load<P>(fa[q], st, k, 0, cols, col);
-        st_load<P>(ma[q], st, k, 1, cols, col);
+        st_load<P, NS>(fa[q], st, k, 0, cols, col);
+        if constexpr (NS == 2) st_load<P, NS>(ma[q], st, k, 1, cols, col);
       } else {
         zero<P>(fa[q]);
-        zero<P>(ma[q]);
+        if constexpr (NS == 2) zero<P>(ma[q]);
       }
     }
   };
@@ -585,22 +571,24 @@ dtilde_carry(double* __restrict__ st, int cols, int segments, int ctc,
       copy<P>(u, v);
     }
   }
-  for (int bi = batches - 1; bi >= 0; --bi) {
-    load(bi);
+  if constexpr (NS == 2) {
+    for (int bi = batches - 1; bi >= 0; --bi) {
+      load(bi);
 #pragma unroll
-    for (int q = CARRY_BATCH - 1; q >= 0; --q) {
-      if (bi * CARRY_BATCH + q >= lane_segs) continue;
-      copy<P>(v, ma[q]);
-      shift_add<P>(v, w, seg_rows, seg_inv);
-      copy<P>(w, v);
+      for (int q = CARRY_BATCH - 1; q >= 0; --q) {
+        if (bi * CARRY_BATCH + q >= lane_segs) continue;
+        copy<P>(v, ma[q]);
+        shift_add<P>(v, w, seg_rows, seg_inv);
+        copy<P>(w, v);
+      }
     }
   }
-  group_scan<P>(u, w, sh, l, lanes, ctc, seg_rows * lane_segs,
-                seg_inv / lane_segs);
+  group_scan<P, NS>(u, w, sh, l, lanes, ctc, seg_rows * lane_segs,
+                    seg_inv / lane_segs);
   double e[P + 1], ew[P + 1];
   zero<P>(e);
   zero<P>(ew);
-  exclusive<P>(u, w, sh, l, lanes, ctc, e, ew);
+  exclusive<P, NS>(u, w, sh, l, lanes, ctc, e, ew);
   if (!live) return;
   for (int bi = 0; bi < batches; ++bi) {
     load(bi);
@@ -608,22 +596,24 @@ dtilde_carry(double* __restrict__ st, int cols, int segments, int ctc,
     for (int q = 0; q < CARRY_BATCH; ++q) {
       const int k = k0 + bi * CARRY_BATCH + q;
       if (bi * CARRY_BATCH + q >= lane_segs || k >= segments) break;
-      st_store<P>(e, st, k, 0, cols, col);
+      st_store<P, NS>(e, st, k, 0, cols, col);
       copy<P>(v, fa[q]);
       shift_add<P>(v, e, seg_rows, seg_inv);
       copy<P>(e, v);
     }
   }
-  for (int bi = batches - 1; bi >= 0; --bi) {
-    load(bi);
+  if constexpr (NS == 2) {
+    for (int bi = batches - 1; bi >= 0; --bi) {
+      load(bi);
 #pragma unroll
-    for (int q = CARRY_BATCH - 1; q >= 0; --q) {
-      const int k = k0 + bi * CARRY_BATCH + q;
-      if (bi * CARRY_BATCH + q >= lane_segs || k >= segments) continue;
-      st_store<P>(ew, st, k, 1, cols, col);
-      copy<P>(v, ma[q]);
-      shift_add<P>(v, ew, seg_rows, seg_inv);
-      copy<P>(ew, v);
+      for (int q = CARRY_BATCH - 1; q >= 0; --q) {
+        const int k = k0 + bi * CARRY_BATCH + q;
+        if (bi * CARRY_BATCH + q >= lane_segs || k >= segments) continue;
+        st_store<P, NS>(ew, st, k, 1, cols, col);
+        copy<P>(v, ma[q]);
+        shift_add<P>(v, ew, seg_rows, seg_inv);
+        copy<P>(ew, v);
+      }
     }
   }
 }
@@ -632,34 +622,28 @@ dtilde_carry(double* __restrict__ st, int cols, int segments, int ctc,
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T, int P>
-int launch_l(const void* x, void* y, int n, int cols, cudaStream_t st) {
-  fgc_kernel<T, P><<<(cols + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      (const T*)x, (T*)y, n, cols);
-  return (int)cudaGetLastError();
-}
-
-struct DtPlan {
+struct ScanPlan {
   int chunk, tc, groups, segments, ctc, lanes, lane_segs, state_blocks,
-      blocks;
+      blocks, streams;
 };
 
 // Lets a pass take its largest dynamic shared memory (a block of
 // DT_THREADS threads over MAX_TC columns) and writes the blocks of
 // tc * groups threads an SM holds of it (the fewer of its vector and
 // scalar instantiations).
-template <typename T, int P, int PASS, int CH>
+template <typename T, int P, int PASS, int CH, int NS>
 int residency_pass(int tc, int groups, int* out) {
   *out = 1 << 30;
-  for (auto kern : {dtilde_pass<T, P, PASS, CH, true>,
-                    dtilde_pass<T, P, PASS, CH, false>}) {
+  for (auto kern : {scan_pass<T, P, PASS, CH, true, NS>,
+                    scan_pass<T, P, PASS, CH, false, NS>}) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)pass_smem<T, P, PASS, CH>(MAX_TC, DT_THREADS / MAX_TC));
+        (int)pass_smem<T, P, PASS, CH, NS>(MAX_TC, DT_THREADS / MAX_TC));
     int occ = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, kern, tc * groups, pass_smem<T, P, PASS, CH>(tc, groups));
+          &occ, kern, tc * groups,
+          pass_smem<T, P, PASS, CH, NS>(tc, groups));
     if (err != cudaSuccess) return (int)err;
     *out = occ < *out ? occ : *out;
   }
@@ -673,77 +657,99 @@ constexpr bool has_chunk(int ch) {
   return ch == 16 || (ch == 32 && sizeof(T) == 4);
 }
 
-template <typename T, int P>
+template <typename T, int P, int NS>
 int residency_p(int tc, int groups, int ch, int* out) {
   if (ch == 32) {
     if constexpr (sizeof(T) == 4) {
-      const int rc = residency_pass<T, P, 1, 32>(tc, groups, out);
-      return rc != 0 ? rc : residency_pass<T, P, 2, 32>(tc, groups, out + 1);
+      const int rc = residency_pass<T, P, 1, 32, NS>(tc, groups, out);
+      return rc != 0 ? rc
+                     : residency_pass<T, P, 2, 32, NS>(tc, groups, out + 1);
     }
   }
-  const int rc = residency_pass<T, P, 1, 16>(tc, groups, out);
-  return rc != 0 ? rc : residency_pass<T, P, 2, 16>(tc, groups, out + 1);
+  const int rc = residency_pass<T, P, 1, 16, NS>(tc, groups, out);
+  return rc != 0 ? rc : residency_pass<T, P, 2, 16, NS>(tc, groups, out + 1);
 }
 
-template <typename T, int P, int CH, bool VEC>
-int launch_dtilde(const void* x, void* y, double* carry, int n, int cols,
-                  const DtPlan& pl, cudaStream_t st) {
+template <typename T, int P, int CH, bool VEC, int NS>
+int launch_scan(const void* x, void* y, double* carry, int n, int cols,
+                bool rev, const ScanPlan& pl, cudaStream_t st) {
   const int tiles = (cols + pl.tc - 1) / pl.tc;
   const int items = tiles * pl.segments;
   const int threads = pl.tc * pl.groups;
   if (pl.segments > 1) {
-    dtilde_pass<T, P, 1, CH, VEC>
-        <<<pl.state_blocks, threads, pass_smem<T, P, 1, CH>(pl.tc, pl.groups),
-           st>>>((const T*)x, carry, nullptr, n, cols, pl.tc, pl.groups,
-                 tiles, items);
+    scan_pass<T, P, 1, CH, VEC, NS>
+        <<<pl.state_blocks, threads,
+           pass_smem<T, P, 1, CH, NS>(pl.tc, pl.groups), st>>>(
+            (const T*)x, carry, nullptr, n, cols, pl.tc, pl.groups, tiles,
+            items, rev);
     int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     const double seg_rows = (double)(pl.groups * CH);
-    dtilde_carry<P><<<(cols + pl.ctc - 1) / pl.ctc, pl.ctc * pl.lanes, 0,
-                      st>>>(carry, cols, pl.segments, pl.ctc, pl.lanes,
-                            pl.lane_segs, seg_rows, 1.0 / seg_rows);
+    scan_carry<P, NS><<<(cols + pl.ctc - 1) / pl.ctc, pl.ctc * pl.lanes, 0,
+                        st>>>(carry, cols, pl.segments, pl.ctc, pl.lanes,
+                              pl.lane_segs, seg_rows, 1.0 / seg_rows);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  dtilde_pass<T, P, 2, CH, VEC>
-      <<<pl.blocks, threads, pass_smem<T, P, 2, CH>(pl.tc, pl.groups), st>>>(
-          (const T*)x, pl.segments > 1 ? carry : nullptr, (T*)y, n, cols,
-          pl.tc, pl.groups, tiles, items);
+  scan_pass<T, P, 2, CH, VEC, NS>
+      <<<pl.blocks, threads, pass_smem<T, P, 2, CH, NS>(pl.tc, pl.groups),
+         st>>>((const T*)x, pl.segments > 1 ? carry : nullptr, (T*)y, n,
+               cols, pl.tc, pl.groups, tiles, items, rev);
   return (int)cudaGetLastError();
 }
 
 // The vector instantiation where every row of x and of a tile starts on a
 // 16-byte boundary, else the scalar one: the same tiles and order of sums.
-template <typename T, int P, int CH>
-int launch_dtilde(const void* x, void* y, double* carry, int n, int cols,
-                  const DtPlan& pl, cudaStream_t st) {
+template <typename T, int P, int CH, int NS>
+int launch_scan(const void* x, void* y, double* carry, int n, int cols,
+                bool rev, const ScanPlan& pl, cudaStream_t st) {
   const bool vec = (uintptr_t)x % 16 == 0 && cols * sizeof(T) % 16 == 0 &&
                    pl.tc * sizeof(T) % 16 == 0;
-  return vec ? launch_dtilde<T, P, CH, true>(x, y, carry, n, cols, pl, st)
-             : launch_dtilde<T, P, CH, false>(x, y, carry, n, cols, pl, st);
+  return vec ? launch_scan<T, P, CH, true, NS>(x, y, carry, n, cols, rev, pl,
+                                               st)
+             : launch_scan<T, P, CH, false, NS>(x, y, carry, n, cols, rev, pl,
+                                                st);
 }
 
-template <typename T, int P>
-int launch_dtilde(const void* x, void* y, double* carry, int n, int cols,
-                  const DtPlan& pl, cudaStream_t st) {
+template <typename T, int P, int NS>
+int launch_scan(const void* x, void* y, double* carry, int n, int cols,
+                bool rev, const ScanPlan& pl, cudaStream_t st) {
   if constexpr (sizeof(T) == 4)
     if (pl.chunk == 32)
-      return launch_dtilde<T, P, 32>(x, y, carry, n, cols, pl, st);
-  return launch_dtilde<T, P, 16>(x, y, carry, n, cols, pl, st);
+      return launch_scan<T, P, 32, NS>(x, y, carry, n, cols, rev, pl, st);
+  return launch_scan<T, P, 16, NS>(x, y, carry, n, cols, rev, pl, st);
+}
+
+template <typename T, int NS>
+int launch_ns(const void* x, void* y, double* c, int n, int cols, int p,
+              bool rev, const ScanPlan& pl, cudaStream_t st) {
+  switch (p) {
+    case 0: return launch_scan<T, 0, NS>(x, y, c, n, cols, rev, pl, st);
+    case 1: return launch_scan<T, 1, NS>(x, y, c, n, cols, rev, pl, st);
+    case 2: return launch_scan<T, 2, NS>(x, y, c, n, cols, rev, pl, st);
+    case 3: return launch_scan<T, 3, NS>(x, y, c, n, cols, rev, pl, st);
+    case 4: return launch_scan<T, 4, NS>(x, y, c, n, cols, rev, pl, st);
+    case 5: return launch_scan<T, 5, NS>(x, y, c, n, cols, rev, pl, st);
+    case 6: return launch_scan<T, 6, NS>(x, y, c, n, cols, rev, pl, st);
+    case 7: return launch_scan<T, 7, NS>(x, y, c, n, cols, rev, pl, st);
+    case 8: return launch_scan<T, 8, NS>(x, y, c, n, cols, rev, pl, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-// The plan's invariants (fgc_scan.dtilde_plan keeps them): power-of-two
-// tiles, groups and lanes within a block, every row and segment covered,
-// a grid of at most one block an item.
+// The plan's invariants (fgc_scan.dtilde_plan keeps them): one or two
+// streams, power-of-two tiles, groups and lanes within a block, every row
+// and segment covered, a grid of at most one block an item.
 template <typename T>
-bool plan_ok(int n, int cols, const DtPlan& pl, const void* carry) {
+bool plan_ok(int n, int cols, const ScanPlan& pl, const void* carry) {
   const long long rows = (long long)pl.segments * pl.groups * pl.chunk;
   const long long items = (cols + (long long)pl.tc - 1) / pl.tc * pl.segments;
-  return has_chunk<T>(pl.chunk) && pow2(pl.tc) && pl.tc <= MAX_TC &&
-         pow2(pl.groups) && pow2(pl.ctc) && pow2(pl.lanes) &&
-         pow2(pl.lane_segs) && pl.tc * pl.groups <= DT_THREADS &&
+  return (pl.streams == 1 || pl.streams == 2) && has_chunk<T>(pl.chunk) &&
+         pow2(pl.tc) && pl.tc <= MAX_TC && pow2(pl.groups) &&
+         pow2(pl.ctc) && pow2(pl.lanes) && pow2(pl.lane_segs) &&
+         pl.tc * pl.groups <= DT_THREADS &&
          pl.ctc * pl.lanes <= CARRY_THREADS && rows >= n &&
          rows - (long long)pl.groups * pl.chunk < n &&
          (long long)pl.lanes * pl.lane_segs >= pl.segments &&
@@ -754,83 +760,63 @@ bool plan_ok(int n, int cols, const DtPlan& pl, const void* carry) {
 
 template <typename T>
 int launch(const void* x, void* y, void* carry, int n, int cols, int p,
-           const DtPlan* pl, void* stream_ptr) {
+           int reverse, const ScanPlan& pl, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  if (pl != nullptr) {
-    if (!plan_ok<T>(n, cols, *pl, carry)) return (int)cudaErrorInvalidValue;
-    double* c = (double*)carry;
-    switch (p) {
-      case 0: return launch_dtilde<T, 0>(x, y, c, n, cols, *pl, st);
-      case 1: return launch_dtilde<T, 1>(x, y, c, n, cols, *pl, st);
-      case 2: return launch_dtilde<T, 2>(x, y, c, n, cols, *pl, st);
-      case 3: return launch_dtilde<T, 3>(x, y, c, n, cols, *pl, st);
-      case 4: return launch_dtilde<T, 4>(x, y, c, n, cols, *pl, st);
-      case 5: return launch_dtilde<T, 5>(x, y, c, n, cols, *pl, st);
-      case 6: return launch_dtilde<T, 6>(x, y, c, n, cols, *pl, st);
-      case 7: return launch_dtilde<T, 7>(x, y, c, n, cols, *pl, st);
-      case 8: return launch_dtilde<T, 8>(x, y, c, n, cols, *pl, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+  if (!plan_ok<T>(n, cols, pl, carry) || (reverse != 0 && pl.streams != 1))
+    return (int)cudaErrorInvalidValue;
+  double* c = (double*)carry;
+  return pl.streams == 1
+             ? launch_ns<T, 1>(x, y, c, n, cols, p, reverse != 0, pl, st)
+             : launch_ns<T, 2>(x, y, c, n, cols, p, false, pl, st);
+}
+
+template <typename T, int NS>
+int residency_ns(int p, int tc, int groups, int ch, int* out) {
   switch (p) {
-    case 0: return launch_l<T, 0>(x, y, n, cols, st);
-    case 1: return launch_l<T, 1>(x, y, n, cols, st);
-    case 2: return launch_l<T, 2>(x, y, n, cols, st);
-    case 3: return launch_l<T, 3>(x, y, n, cols, st);
-    case 4: return launch_l<T, 4>(x, y, n, cols, st);
-    case 5: return launch_l<T, 5>(x, y, n, cols, st);
-    case 6: return launch_l<T, 6>(x, y, n, cols, st);
-    case 7: return launch_l<T, 7>(x, y, n, cols, st);
-    case 8: return launch_l<T, 8>(x, y, n, cols, st);
+    case 0: return residency_p<T, 0, NS>(tc, groups, ch, out);
+    case 1: return residency_p<T, 1, NS>(tc, groups, ch, out);
+    case 2: return residency_p<T, 2, NS>(tc, groups, ch, out);
+    case 3: return residency_p<T, 3, NS>(tc, groups, ch, out);
+    case 4: return residency_p<T, 4, NS>(tc, groups, ch, out);
+    case 5: return residency_p<T, 5, NS>(tc, groups, ch, out);
+    case 6: return residency_p<T, 6, NS>(tc, groups, ch, out);
+    case 7: return residency_p<T, 7, NS>(tc, groups, ch, out);
+    case 8: return residency_p<T, 8, NS>(tc, groups, ch, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int residency(int p, int tc, int groups, int ch, int* out) {
+int residency(int p, int streams, int tc, int groups, int ch, int* out) {
   if (tc < 1 || groups < 1 || tc * groups > DT_THREADS || !has_chunk<T>(ch))
     return (int)cudaErrorInvalidValue;
-  switch (p) {
-    case 0: return residency_p<T, 0>(tc, groups, ch, out);
-    case 1: return residency_p<T, 1>(tc, groups, ch, out);
-    case 2: return residency_p<T, 2>(tc, groups, ch, out);
-    case 3: return residency_p<T, 3>(tc, groups, ch, out);
-    case 4: return residency_p<T, 4>(tc, groups, ch, out);
-    case 5: return residency_p<T, 5>(tc, groups, ch, out);
-    case 6: return residency_p<T, 6>(tc, groups, ch, out);
-    case 7: return residency_p<T, 7>(tc, groups, ch, out);
-    case 8: return residency_p<T, 8>(tc, groups, ch, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (streams == 1) return residency_ns<T, 1>(p, tc, groups, ch, out);
+  if (streams == 2) return residency_ns<T, 2>(p, tc, groups, ch, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 static_assert(MAX_P == 8, "the switches above cover p = 0..MAX_P");
 
 }  // namespace
 
-#define FGC_L_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* x, void* y, int n, int cols, int p,       \
-                      void* stream) {                                       \
-    return launch<T>(x, y, nullptr, n, cols, p, nullptr, stream);           \
-  }
-
-// carry: 2 (p+1) segments * cols doubles (unused with one segment); the
-// plan's fields as fgc_scan.dtilde_plan returns them.
-#define FGC_DTILDE_ENTRY(NAME, RES, T)                                      \
+// carry: segments * streams * (p+1) * cols doubles (unused with one
+// segment); reverse (one stream only): L^T x in place of L x; the plan's
+// fields as fgc_scan.dtilde_plan returns them.
+#define FGC_SCAN_ENTRY(NAME, RES, T)                                        \
   extern "C" int NAME(const void* x, void* y, void* carry, int n, int cols, \
-                      int p, int chunk, int col_tile, int groups,           \
-                      int segments, int carry_cols, int lanes,              \
-                      int lane_segs, int state_blocks, int blocks,          \
-                      void* stream) {                                       \
-    const DtPlan pl{chunk, col_tile, groups, segments, carry_cols, lanes,   \
-                    lane_segs, state_blocks, blocks};                       \
-    return launch<T>(x, y, carry, n, cols, p, &pl, stream);                 \
+                      int p, int reverse, int streams, int chunk,           \
+                      int col_tile, int groups, int segments,               \
+                      int carry_cols, int lanes, int lane_segs,             \
+                      int state_blocks, int blocks, void* stream) {         \
+    const ScanPlan pl{chunk,     col_tile,     groups, segments, carry_cols, \
+                      lanes,     lane_segs,    state_blocks, blocks,        \
+                      streams};                                             \
+    return launch<T>(x, y, carry, n, cols, p, reverse, pl, stream);         \
   }                                                                         \
-  extern "C" int RES(int p, int col_tile, int groups, int chunk, int* out) { \
-    return residency<T>(p, col_tile, groups, chunk, out);                   \
+  extern "C" int RES(int p, int streams, int col_tile, int groups,          \
+                     int chunk, int* out) {                                 \
+    return residency<T>(p, streams, col_tile, groups, chunk, out);          \
   }
 
-FGC_L_ENTRY(fgc_apply_l_f32, float)
-FGC_L_ENTRY(fgc_apply_l_f64, double)
-FGC_DTILDE_ENTRY(fgc_apply_dtilde_f32, fgc_dtilde_residency_f32, float)
-FGC_DTILDE_ENTRY(fgc_apply_dtilde_f64, fgc_dtilde_residency_f64, double)
+FGC_SCAN_ENTRY(fgc_scan_f32, fgc_scan_residency_f32, float)
+FGC_SCAN_ENTRY(fgc_scan_f64, fgc_scan_residency_f64, double)

@@ -11,17 +11,19 @@ along axis 0 of an (N, B) array.  Both run the paper's (p+1)-moment
 recursion (eq. 3.9), a_{i+1} = P a_i + x_i·1 and y_i = a_i[p] with P the
 Pascal matrix; Lᵀ is the same recursion from the last row up.  The state is
 kept in float64 for float32 inputs too: the recursion's rounding error
-grows with N, and Hopper has f64 (the reference's TPU kernel does not).  The CUDA
-source is ``csrc/fgc_scan.cu``.  The D̃ kernel is a segmented scan: the rows
-are cut into power-of-two segments, each segment's states are composed
-from zero and carried across segments in a fixed order (a state shifted
-past S rows is P_S[r,s] = C(r,s)·S^{r−s}, the reference's block shift), and
-x is read twice and y written once (three CUDA launches: the segments'
-states, the carry, the apply; only the apply with a single segment); the L
-kernel walks each column in one thread.  What bounds both on the card is
-the bytes of x read plus y written.  The D̃ grid comes from `dtilde_plan`,
-a pure function of the shape, the dtype and the card's SM count (and its
-occupancy, asked of the runtime), so the CPU tests hold it.
+grows with N, and Hopper has f64 (the reference's TPU kernel does not).  The
+CUDA source is ``csrc/fgc_scan.cu``.  Both kernels are one segmented scan:
+the rows are cut into power-of-two segments, each segment's states are
+composed from zero and carried across segments in a fixed order (a state
+shifted past S rows is P_S[r,s] = C(r,s)·S^{r−s}, the reference's block
+shift), and x is read twice and y written once (three CUDA launches: the
+segments' states, the carry, the apply; only the apply with a single
+segment).  D̃ takes two streams, the forward and the mirrored; L takes the
+forward stream alone, and Lᵀ the same stream over x's rows bottom up (the
+kernel's row map: no flipped copy).  What bounds both on the card is the
+bytes of x read plus y written.  The grid comes from `dtilde_plan`, a pure
+function of the shape, the dtype, the stream count and the card's SM count
+(and its occupancy, asked of the runtime), so the CPU tests hold it.
 
 The plain versions run the same recursion in PyTorch ops, one row at a time
 (a Python loop over N): they are the CPU path, the ``"scan"`` backend of
@@ -38,15 +40,16 @@ import torch
 
 MAX_POWER = 8                 # the kernel's template range, 0..8
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
-#: B3's geometry (``csrc/fgc_scan.cu``): a thread takes `chunk` rows of
-#: one column (the first of DTILDE_CHUNKS, by dtype, that leaves at least
-#: DTILDE_MIN_BLOCKS_PER_SM items an SM, else the last), staged in a ring of
-#: DTILDE_SLOTS tiles in shared memory; a block holds a tile of up to
-#: DTILDE_COL_TILE columns × `groups` chunks (at most DTILDE_MAX_GROUPS, and
-#: DTILDE_THREADS threads), one segment of groups·chunk rows.  The carry
-#: gives each column's `lanes` threads DTILDE_LANE_SEGS segments each, or
-#: more when the lanes run out, in blocks of at most DTILDE_CARRY_THREADS
-#: threads.
+#: The scan's geometry (``csrc/fgc_scan.cu``, B3 and B4): a thread takes
+#: `chunk` rows of one column (the first of DTILDE_CHUNKS, by dtype, that
+#: leaves at least DTILDE_MIN_BLOCKS_PER_SM items an SM, else the last),
+#: staged in a ring of DTILDE_SLOTS tiles in shared memory; a block holds a
+#: tile of up to DTILDE_COL_TILE columns × `groups` chunks (at most
+#: DTILDE_MAX_GROUPS, and DTILDE_THREADS threads), one segment of
+#: groups·chunk rows.  The carry gives each column's `lanes` threads
+#: DTILDE_LANE_SEGS segments each, or more when the lanes run out, in blocks
+#: of at most DTILDE_CARRY_THREADS threads.  D̃ (B3) runs two streams, L and
+#: Lᵀ (B4) one.
 DTILDE_CHUNKS = {4: (32, 16), 8: (16,)}
 DTILDE_SLOTS = 3
 DTILDE_THREADS = 256
@@ -80,8 +83,12 @@ def _recursion(xs, p: int):
     return ys
 
 
-def apply_l_plain(x, p: int = 1):
-    """y = L x along axis 0 of (N, B) x."""
+def apply_l_plain(x, p: int = 1, reverse: bool = False):
+    """y = L x along axis 0 of (N, B) x; with ``reverse``, y = Lᵀ x =
+    flip(L flip(x)), the reference's reversal identity."""
+    if reverse:
+        return torch.flip(_recursion(torch.flip(x, (0,)), p),
+                          (0,)).to(x.dtype)
     return _recursion(x, p).to(x.dtype)
 
 
@@ -96,11 +103,13 @@ def apply_dtilde_plain(x, p: int = 1):
 
 
 class DtildePlan(NamedTuple):
-    """B3's launch: `segments` segments of seg_rows = groups·chunk rows; an
-    item is one segment of a tile of col_tile columns, for a block of
-    col_tile·groups threads, and state_blocks (pass 1) and `blocks` (pass
-    2) blocks walk the items; the carry launch gives each block carry_cols
-    columns × lanes threads, each lane lane_segs consecutive segments."""
+    """The scan's launch (B3 with two streams, B4 with one): `segments`
+    segments of seg_rows = groups·chunk rows; an item is one segment of a
+    tile of col_tile columns, for a block of col_tile·groups threads, and
+    state_blocks (pass 1) and `blocks` (pass 2) blocks walk the items; the
+    carry launch gives each block carry_cols columns × lanes threads, each
+    lane lane_segs consecutive segments, each segment `streams` states a
+    column."""
     chunk: int
     seg_rows: int
     col_tile: int
@@ -111,6 +120,7 @@ class DtildePlan(NamedTuple):
     lane_segs: int
     state_blocks: int
     blocks: int
+    streams: int
 
 
 def _pow2_at_least(v: int) -> int:
@@ -119,10 +129,13 @@ def _pow2_at_least(v: int) -> int:
 
 def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
                 blocks_per_sm: int = DTILDE_MIN_BLOCKS_PER_SM,
-                state_blocks_per_sm: int | None = None) -> DtildePlan:
-    """B3's grid for an (N, B) x of `itemsize` bytes on a card of `sms`
-    SMs that holds `blocks_per_sm` blocks of pass 2 and
-    `state_blocks_per_sm` (default the same) of pass 1.  A tile is B's
+                state_blocks_per_sm: int | None = None,
+                streams: int = 2) -> DtildePlan:
+    """The scan's grid, for B3 (``streams=2``) or B4 (``streams=1``), for
+    an (N, B) x of `itemsize` bytes on a card of `sms` SMs that holds
+    `blocks_per_sm` blocks of pass 2 and `state_blocks_per_sm` (default the
+    same) of pass 1; the stream count enters the grid only through those
+    (the runtime's occupancy of each stream count's kernels).  A tile is B's
     width up to DTILDE_COL_TILE columns (a power of two); a block starts at
     DTILDE_THREADS threads or DTILDE_MAX_GROUPS groups, has its groups
     halved while half of them would still hold N (a short N is one
@@ -131,9 +144,11 @@ def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
     dtype's DTILDE_CHUNKS that gets there.  Each pass's grid is one wave:
     blocks_per_sm·sms blocks, or one an item where there are fewer."""
     if not (1 <= n <= MAX_ROWS and 1 <= cols <= MAX_ROWS):
-        raise ValueError(f"B3 cannot take an x of ({n}, {cols})")
+        raise ValueError(f"the scan cannot take an x of ({n}, {cols})")
     if itemsize not in DTILDE_CHUNKS:
-        raise ValueError(f"B3 takes x of 4 or 8 bytes, not {itemsize}")
+        raise ValueError(f"the scan takes x of 4 or 8 bytes, not {itemsize}")
+    if streams not in (1, 2):
+        raise ValueError(f"the scan runs 1 or 2 streams, not {streams}")
     if state_blocks_per_sm is None:
         state_blocks_per_sm = blocks_per_sm
     if sms < 1 or min(blocks_per_sm, state_blocks_per_sm) < 1:
@@ -161,20 +176,20 @@ def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
     items = tiles * segments
     return DtildePlan(chunk, seg_rows, tc, segments, groups, carry_cols,
                       lanes, lane_segs, min(items, state_blocks_per_sm * sms),
-                      min(items, blocks_per_sm * sms))
+                      min(items, blocks_per_sm * sms), streams)
 
 
 def dtilde_smem_bytes(p: int, itemsize: int, chunk: int,
                       col_tile: int = DTILDE_COL_TILE,
                       groups: int = DTILDE_THREADS // DTILDE_COL_TILE,
-                      apply: bool = True) -> int:
-    """Shared memory of a B3 pass block (the kernels' `pass_smem`): two
-    (p+1)-moment states a thread for the groups' fold, and DTILDE_SLOTS
-    slots of the tile (`chunk` elements a thread) and, in the apply pass,
-    of its carries (two states a column); the default is the largest
-    block.  The carry block's scan states are fewer."""
-    return col_tile * (2 * (p + 1) * 8 * (groups + (DTILDE_SLOTS if apply
-                                                    else 0))
+                      apply: bool = True, streams: int = 2) -> int:
+    """Shared memory of a scan pass block (the kernels' `pass_smem`):
+    `streams` (p+1)-moment states a thread for the groups' fold, and
+    DTILDE_SLOTS slots of the tile (`chunk` elements a thread) and, in the
+    apply pass, of its carries (`streams` states a column); the default is
+    B3's largest block.  The carry block's scan states are fewer."""
+    return col_tile * (streams * (p + 1) * 8
+                       * (groups + (DTILDE_SLOTS if apply else 0))
                        + DTILDE_SLOTS * chunk * itemsize * groups)
 
 
@@ -185,38 +200,35 @@ def _library():
 
 
 @functools.cache
-def _entry(name: str):
-    fn = getattr(_library(), name)
-    if "dtilde" in name:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + \
-            [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _entry(tag: str):
+    fn = getattr(_library(), f"fgc_scan_{tag}")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _launch_plan(tag, n, cols, itemsize, p, device):
-    """B3's plan on `device`, one wave of the blocks its SMs hold (both
-    passes' occupancy, asked of the runtime once a shape; the call also
-    lets the passes take their shared memory)."""
+def _launch_plan(tag, n, cols, itemsize, p, streams, device):
+    """The scan's plan on `device` for `streams` streams, one wave of the
+    blocks its SMs hold (both passes' occupancy, asked of the runtime once
+    a shape; the call also lets the passes take their shared memory)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = dtilde_plan(n, cols, itemsize, sms)
-    fn = getattr(_library(), f"fgc_dtilde_residency_{tag}")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    plan = dtilde_plan(n, cols, itemsize, sms, streams=streams)
+    fn = getattr(_library(), f"fgc_scan_residency_{tag}")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     resident = (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        rc = fn(p, plan.col_tile, plan.groups, plan.chunk, resident)
+        rc = fn(p, streams, plan.col_tile, plan.groups, plan.chunk, resident)
     if rc != 0 or min(resident) < 1:
-        raise RuntimeError(f"fgc_dtilde_residency_{tag}: CUDA error {rc}, "
+        raise RuntimeError(f"fgc_scan_residency_{tag}: CUDA error {rc}, "
                            f"{list(resident)} blocks an SM")
-    return dtilde_plan(n, cols, itemsize, sms, resident[1], resident[0])
+    return dtilde_plan(n, cols, itemsize, sms, resident[1], resident[0],
+                       streams)
 
 
-def _launch(kind: str, x, p: int):
+def _launch(x, p: int, streams: int, reverse: bool = False):
     if not x.is_cuda:
         raise ValueError("the FGC kernels take CUDA tensors")
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
@@ -231,34 +243,36 @@ def _launch(kind: str, x, p: int):
                          f"got {p}")
     n, b = x.shape
     y = torch.empty_like(x)
-    name = f"fgc_apply_{kind}_{_DTYPE_TAG[x.dtype]}"
-    fn = _entry(name)
+    tag = _DTYPE_TAG[x.dtype]
+    fn = _entry(tag)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if kind == "l":
-            rc = fn(x.data_ptr(), y.data_ptr(), n, b, p, stream)
-        else:
-            plan = _launch_plan(_DTYPE_TAG[x.dtype], n, b,
-                                x.element_size(), p, x.device)
-            carry = torch.empty(
-                (plan.segments * 2 * (p + 1) * b if plan.segments > 1
-                 else 0,), dtype=torch.float64, device=x.device)
-            rc = fn(x.data_ptr(), y.data_ptr(), carry.data_ptr(), n, b, p,
-                    plan.chunk, plan.col_tile, plan.groups, plan.segments,
-                    plan.carry_cols, plan.lanes, plan.lane_segs,
-                    plan.state_blocks, plan.blocks, stream)
+        plan = _launch_plan(tag, n, b, x.element_size(), p, streams,
+                            x.device)
+        # `streams` (p+1)-moment states a column and segment
+        carry = torch.empty(
+            (plan.segments * plan.streams * (p + 1) * b if plan.segments > 1
+             else 0,), dtype=torch.float64, device=x.device)
+        rc = fn(x.data_ptr(), y.data_ptr(), carry.data_ptr(), n, b, p,
+                int(reverse), plan.streams, plan.chunk, plan.col_tile,
+                plan.groups, plan.segments, plan.carry_cols, plan.lanes,
+                plan.lane_segs, plan.state_blocks, plan.blocks, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fgc_scan_{tag} ({streams} stream(s)) launch "
+                           f"failed: CUDA error {rc}")
     return y
 
 
-def apply_l_cuda(x, p: int = 1):
-    """Launch the L kernel on a contiguous CUDA (N, B) x."""
-    return _launch("l", x, p)
+def apply_l_cuda(x, p: int = 1, reverse: bool = False):
+    """Launch the L kernel (B4) on a contiguous CUDA (N, B) x: y = L x, or
+    y = Lᵀ x with ``reverse`` (the same scan over x's rows bottom up, no
+    flipped copy).  One call, up to three CUDA launches (states, carry,
+    apply; only the apply with a single segment), with carry scratch from
+    ``torch.empty``."""
+    return _launch(x, p, 1, reverse)
 
 
 def apply_dtilde_cuda(x, p: int = 1):
-    """Launch the fused D̃ kernel on a contiguous CUDA (N, B) x: one call,
-    up to three CUDA launches (states, carry, apply; only the apply with a
-    single segment), with carry scratch from ``torch.empty``."""
-    return _launch("dtilde", x, p)
+    """Launch the fused D̃ kernel (B3) on a contiguous CUDA (N, B) x: the
+    same scan with two streams, up to three CUDA launches."""
+    return _launch(x, p, 2)

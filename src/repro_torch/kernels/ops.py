@@ -119,13 +119,14 @@ def sinkhorn_col_update(cost, f, log_nu, eps, cost_dtype: str = "f32"):
                                        eps, cost_dtype)[0]
 
 
-def fgc_apply_l(x, p: int = 1):
-    """y = L x along axis 0 of an (N, B) array."""
+def fgc_apply_l(x, p: int = 1, reverse: bool = False):
+    """y = L x along axis 0 of an (N, B) array; y = Lᵀ x with
+    ``reverse``."""
     if x.is_cuda:
-        y = fgc_scan.apply_l_cuda(x, p)
+        y = fgc_scan.apply_l_cuda(x, p, reverse)
         LAUNCHES["fgc_apply_l"] += 1
         return y
-    return fgc_scan.apply_l_plain(x, p)
+    return fgc_scan.apply_l_plain(x, p, reverse)
 
 
 def fgc_apply_dtilde(x, p: int = 1):

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import (GWConfig, Grid1D, LowRankGeometry,
                               PointCloudGeometry, entropic_gw)
+from repro_torch.core import fgc as core_fgc
 from repro_torch.kernels import fgc_scan, lr_step, ops, sinkhorn_step
 
 pytestmark = pytest.mark.cuda
@@ -205,8 +206,29 @@ def test_half_step_alignment_changes_no_bit(dev, tag, kind):
     assert torch.equal(got, want)
 
 
-# (255, 9000) and (257, 9000) straddle a segment boundary of B3's plan on a
-# 132-SM card (tests/test_torch_kernels.py holds that); (8192, 1) and
+# The three FGC applies: B3's D̃, and B4's L and Lᵀ (reverse=True).
+_FGC = {"dtilde": (fgc_scan.apply_dtilde_cuda, fgc_scan.apply_dtilde_plain),
+        "l": (fgc_scan.apply_l_cuda, fgc_scan.apply_l_plain),
+        "lt": (lambda x, p: fgc_scan.apply_l_cuda(x, p, reverse=True),
+               lambda x, p: fgc_scan.apply_l_plain(x, p, reverse=True))}
+
+
+def _fgc_within_bar(kind, x, p, got, plain_device=None):
+    """|kernel − plain| within twice the recursive-sum bound (p+2)·N·u·(M|x|)
+    of each, M the applied matrix (D̃, L or Lᵀ); the plain recursion runs
+    on `plain_device` (default x's)."""
+    plain = _FGC[kind][1]
+    xp = x if plain_device is None else x.to(plain_device)
+    want = plain(xp, p).to(got.device)
+    scale = plain(xp.abs().double(), p).to(got.device)
+    u = torch.finfo(x.dtype).eps / 2
+    n = x.shape[0]
+    return bool(((got - want).abs().double()
+                 <= 2 * (p + 2) * n * u * scale).all())
+
+
+# (255, 9000) and (257, 9000) straddle a segment boundary of the scan's plan
+# on a 132-SM card (tests/test_torch_kernels.py holds that); (8192, 1) and
 # (8192, 16) are the squared-distance and D_X Q applies of the factored
 # gradient on a grid, (64, 4099) a short N of several segments.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -214,45 +236,39 @@ def test_half_step_alignment_changes_no_bit(dev, tag, kind):
                                  (255, 9000), (257, 9000), (8192, 1),
                                  (8192, 16), (64, 4099)])
 @pytest.mark.parametrize("p", [0, 1, 2, 3, 8])
-@pytest.mark.parametrize("kind", ["l", "dtilde"])
+@pytest.mark.parametrize("kind", ["l", "lt", "dtilde"])
 def test_fgc_matches_plain(dev, dtype, n, b, p, kind):
     x = torch.randn((n, b), generator=_gen(n + b), device=dev, dtype=dtype)
-    got = getattr(fgc_scan, f"apply_{kind}_cuda")(x, p)
-    want = getattr(fgc_scan, f"apply_{kind}_plain")(x, p)
-    scale = getattr(fgc_scan, f"apply_{kind}_plain")(x.abs().double(), p)
-    # twice the recursive-sum bound (p+2)·N·u·(D|x|)
-    u = torch.finfo(dtype).eps / 2
-    assert ((got - want).abs().double()
-            <= 2 * (p + 2) * n * u * scale).all()
+    got = _FGC[kind][0](x, p)
+    assert _fgc_within_bar(kind, x, p, got)
 
 
 @pytest.mark.parametrize("p", [1, 2])
-def test_fgc_dtilde_many_segments(dev, p):
+@pytest.mark.parametrize("kind", ["dtilde", "l", "lt"])
+def test_fgc_many_segments(dev, p, kind):
     """300 000 rows of one f64 column: over a thousand segments, so each
-    carry lane folds its segments in more than one batch."""
+    carry lane folds its segments in more than one batch (the plain
+    recursion runs on the host: 300 000 rows of small ops)."""
     n, dtype = 300_000, torch.float64
     plan = fgc_scan.dtilde_plan(n, 1, 8, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+        dev).multi_processor_count, streams=1 if kind != "dtilde" else 2)
     assert plan.lane_segs > 4
     x = torch.randn((n, 1), generator=_gen(7), device=dev, dtype=dtype)
-    got = fgc_scan.apply_dtilde_cuda(x, p)
-    want = fgc_scan.apply_dtilde_plain(x, p)
-    scale = fgc_scan.apply_dtilde_plain(x.abs().double(), p)
-    u = torch.finfo(dtype).eps / 2
-    assert ((got - want).abs().double()
-            <= 2 * (p + 2) * n * u * scale).all()
+    got = _FGC[kind][0](x, p)
+    assert _fgc_within_bar(kind, x, p, got, plain_device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,b", [(8192, 1), (8192, 16), (64, 4099),
                                  (1000, 130), (257, 9000)])
 @pytest.mark.parametrize("p", [1, 2])
-def test_fgc_dtilde_bitwise_repeatable(dev, dtype, n, b, p):
-    """B3 sums in a fixed order without float atomics: two launches on the
-    same input give the same bits."""
+@pytest.mark.parametrize("kind", ["dtilde", "l", "lt"])
+def test_fgc_bitwise_repeatable(dev, dtype, n, b, p, kind):
+    """The scan sums in a fixed order without float atomics: two launches
+    on the same input give the same bits."""
     x = torch.randn((n, b), generator=_gen(n * b), device=dev, dtype=dtype)
-    first = fgc_scan.apply_dtilde_cuda(x, p)
-    second = fgc_scan.apply_dtilde_cuda(x, p)
+    first = _FGC[kind][0](x, p)
+    second = _FGC[kind][0](x, p)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
@@ -260,7 +276,8 @@ def test_fgc_dtilde_bitwise_repeatable(dev, dtype, n, b, p):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,b", [(8192, 1), (8192, 16), (301, 129),
                                  (64, 4099)])
-def test_fgc_dtilde_alignment_changes_no_bit(dev, dtype, n, b):
+@pytest.mark.parametrize("kind", ["dtilde", "l", "lt"])
+def test_fgc_alignment_changes_no_bit(dev, dtype, n, b, kind):
     """An x one element off a 16-byte boundary gives the bits of an aligned
     copy: every element is loaded on its own, in the same order of sums."""
     x = torch.randn((n, b), generator=_gen(n + 3 * b), device=dev,
@@ -269,8 +286,8 @@ def test_fgc_dtilde_alignment_changes_no_bit(dev, dtype, n, b):
     shifted = flat[1:].view(x.shape)
     shifted.copy_(x)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
-    got = fgc_scan.apply_dtilde_cuda(shifted, 2)
-    want = fgc_scan.apply_dtilde_cuda(x, 2)
+    got = _FGC[kind][0](shifted, 2)
+    want = _FGC[kind][0](x, 2)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -290,6 +307,11 @@ def test_wrappers_count_launches(dev):
                             "fgc_apply_dtilde": 1, "fgc_apply_l": 1,
                             "lr_dykstra_half": 0, "lr_gram_chain": 0,
                             "lr_grad_combine": 0}
+    # Lᵀ on the kernel route: one B4 launch (its reversed scan), no other
+    ops.reset_launch_counts()
+    core_fgc.apply_LT(x, backend="kernel")
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "fgc_apply_l": 1}
 
 
 def test_wrappers_refuse_bad_input(dev):

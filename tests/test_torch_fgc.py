@@ -37,13 +37,18 @@ def test_apply_abs_power_matches_reference(backend, p, shape, axis):
 @pytest.mark.parametrize("backend", list(BACKENDS))
 @pytest.mark.parametrize("p", [0, 1, 3])
 @pytest.mark.parametrize("which", ["apply_L", "apply_LT"])
-def test_apply_L_LT_match_reference(backend, p, which):
-    x = RNG.normal(size=(45, 6))
-    want = getattr(jfgc, which)(jnp.asarray(x), axis=0, power=p,
+@pytest.mark.parametrize("shape,axis", [((45, 6), 0), ((33,), 0),
+                                        ((6, 37), 1), ((4, 9, 3), 1)])
+def test_apply_L_LT_match_reference(backend, p, which, shape, axis):
+    """Every axis and rank: under ``kernel`` apply_LT takes the L kernel's
+    reversed scan (its plain version here), the reference the flip
+    expression."""
+    x = RNG.normal(size=shape)
+    want = getattr(jfgc, which)(jnp.asarray(x), axis=axis, power=p,
                                 backend=BACKENDS[backend])
-    got = getattr(fgc, which)(torch.from_numpy(x), axis=0, power=p,
+    got = getattr(fgc, which)(torch.from_numpy(x), axis=axis, power=p,
                               backend=backend)
-    _close(got, want, 45, p)
+    _close(got, want, shape[axis], p)
 
 
 def test_cumsum_f32_centred_index():

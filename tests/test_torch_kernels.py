@@ -148,6 +148,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     x = _t(RNG.normal(size=(20, 3)))
     torch.testing.assert_close(ops.fgc_apply_l(x, 2),
                                fgc_scan.apply_l_plain(x, 2))
+    torch.testing.assert_close(ops.fgc_apply_l(x, 2, reverse=True),
+                               fgc_scan.apply_l_plain(x, 2, reverse=True))
     cost, g, _, log_mu, _ = _half_inputs(5, 6, np.float64)
     ops.sinkhorn_row_update(_t(cost), _t(g), _t(log_mu), 0.1)
     assert set(ops.LAUNCHES.values()) == {0}
@@ -157,6 +159,8 @@ def test_cuda_entry_points_refuse_cpu_tensors():
     x = _t(RNG.normal(size=(20, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         fgc_scan.apply_l_cuda(x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fgc_scan.apply_l_cuda(x, 1, reverse=True)
     with pytest.raises(ValueError, match="CUDA"):
         fgc_scan.apply_dtilde_cuda(x, 1)
     cost, g, f, log_mu, _ = _half_inputs(5, 6, np.float64, lanes=1)
@@ -436,9 +440,10 @@ _DT_SHAPES = _DT_TARGETS + [(1, 1), (15, 3), (17, 1), (255, 9000),
                             (100_003, 7), (2 ** 31 - 1, 1), (3, 2 ** 20)]
 
 
-def _dt_valid(plan, n, cols):
+def _dt_valid(plan, n, cols, streams):
     tiles = -(-cols // plan.col_tile)
-    return (plan.seg_rows == plan.groups * plan.chunk
+    return (plan.streams == streams
+            and plan.seg_rows == plan.groups * plan.chunk
             and (plan.segments - 1) * plan.seg_rows < n
             <= plan.segments * plan.seg_rows
             and (tiles - 1) * plan.col_tile < cols <= tiles * plan.col_tile
@@ -456,30 +461,36 @@ def _dt_valid(plan, n, cols):
             and 1 <= plan.state_blocks <= tiles * plan.segments)
 
 
+# The scan's plan is shared by B3 (two streams) and B4 (one): each plan test
+# runs at both stream counts.
+_STREAMS = pytest.mark.parametrize("streams", [2, 1])
+
+
 @pytest.mark.parametrize("n,cols", _DT_SHAPES)
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_dtilde_plan_covers_rows(n, cols, itemsize, sms):
-    """B3's plan: the segments cover the N rows and the tiles the B columns,
-    each once (none empty); power-of-two segments, tiles, groups and lanes
-    within a block's 256 threads and 16 groups; the carry's lanes cover the
-    segments,
-    each lane as few as the lanes allow."""
-    plan = fgc_scan.dtilde_plan(n, cols, itemsize, sms)
-    assert _dt_valid(plan, n, cols)
+@_STREAMS
+def test_dtilde_plan_covers_rows(n, cols, itemsize, sms, streams):
+    """The scan's plan: the segments cover the N rows and the tiles the B
+    columns, each once (none empty); power-of-two segments, tiles, groups
+    and lanes within a block's 256 threads and 16 groups; the carry's lanes
+    cover the segments, each lane as few as the lanes allow."""
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, sms, streams=streams)
+    assert _dt_valid(plan, n, cols, streams)
 
 
 @pytest.mark.parametrize("n,cols", _DT_TARGETS)
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_dtilde_plan_fills_the_card(n, cols, itemsize):
+@_STREAMS
+def test_dtilde_plan_fills_the_card(n, cols, itemsize, streams):
     """At the target shapes the grid holds at least two blocks on each of a
     132-SM card's SMs, and one wave of what the card holds where the items
     allow; Run B's 64 rows are one segment (no carry)."""
-    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132)
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132, streams=streams)
     assert -(-cols // plan.col_tile) * plan.segments >= 2 * 132
     assert plan.blocks == plan.state_blocks == 2 * 132
     items = -(-cols // plan.col_tile) * plan.segments
-    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132, 3, 4)
+    plan = fgc_scan.dtilde_plan(n, cols, itemsize, 132, 3, 4, streams)
     assert (plan.blocks, plan.state_blocks) == (min(items, 3 * 132),
                                                 min(items, 4 * 132))
     if n == 64:
@@ -487,23 +498,28 @@ def test_dtilde_plan_fills_the_card(n, cols, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_dtilde_plan_boundary_shapes(itemsize):
+@_STREAMS
+def test_dtilde_plan_boundary_shapes(itemsize, streams):
     """The cuda tests' (255, 9000) and (257, 9000) straddle a segment
     boundary (row 256) on a 132-SM card; (64, 4099) has several segments."""
-    below, above = (fgc_scan.dtilde_plan(n, 9000, itemsize, 132)
+    below, above = (fgc_scan.dtilde_plan(n, 9000, itemsize, 132,
+                                         streams=streams)
                     for n in (255, 257))
     assert below.seg_rows == above.seg_rows and 256 % above.seg_rows == 0
     assert above.segments == 256 // above.seg_rows + 1 == below.segments + 1
-    assert fgc_scan.dtilde_plan(64, 4099, itemsize, 132).segments > 1
+    assert fgc_scan.dtilde_plan(64, 4099, itemsize, 132,
+                                streams=streams).segments > 1
 
 
 @pytest.mark.parametrize("p", range(fgc_scan.MAX_POWER + 1))
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_dtilde_smem_within_the_limit(p, itemsize):
-    """A B3 pass block's shared memory stays within what an H100 block can
-    opt in to (227 KB) at every chunk of the dtype, and at p <= 2 with
-    16-row chunks within half of it (two blocks an SM); the default is the
-    largest block of any plan."""
+@_STREAMS
+def test_dtilde_smem_within_the_limit(p, itemsize, streams):
+    """A scan pass block's shared memory stays within what an H100 block
+    can opt in to (227 KB) at every chunk of the dtype, and at p <= 2 with
+    16-row chunks within half of it (two blocks an SM); B3's largest block
+    is the largest of any plan, a one-stream block's no larger than the
+    same block's with two streams."""
     for chunk in fgc_scan.DTILDE_CHUNKS[itemsize]:
         big = fgc_scan.dtilde_smem_bytes(p, itemsize, chunk)
         assert big <= 232_448
@@ -513,7 +529,9 @@ def test_dtilde_smem_within_the_limit(p, itemsize):
             for groups in (1, 2, 4, 8, 16):
                 if tc * groups <= fgc_scan.DTILDE_THREADS:
                     for apply in (False, True):
-                        assert fgc_scan.dtilde_smem_bytes(
+                        got = fgc_scan.dtilde_smem_bytes(
+                            p, itemsize, chunk, tc, groups, apply, streams)
+                        assert got <= fgc_scan.dtilde_smem_bytes(
                             p, itemsize, chunk, tc, groups, apply) <= big
 
 
@@ -521,9 +539,16 @@ def test_dtilde_smem_within_the_limit(p, itemsize):
     (0, 4, 8, 132, "cannot take"), (4, 0, 8, 132, "cannot take"),
     (2 ** 31, 1, 8, 132, "cannot take"), (4, 4, 2, 132, "bytes"),
     (4, 4, 8, 0, "SM"), (2 ** 31 - 1, 2 ** 31 - 1, 4, 132, "blocks")])
-def test_dtilde_plan_refuses(n, cols, itemsize, sms, what):
+@_STREAMS
+def test_dtilde_plan_refuses(n, cols, itemsize, sms, what, streams):
     with pytest.raises(ValueError, match=what):
-        fgc_scan.dtilde_plan(n, cols, itemsize, sms)
+        fgc_scan.dtilde_plan(n, cols, itemsize, sms, streams=streams)
+
+
+@pytest.mark.parametrize("streams", [0, 3])
+def test_dtilde_plan_refuses_stream_counts(streams):
+    with pytest.raises(ValueError, match="streams"):
+        fgc_scan.dtilde_plan(64, 4, 8, 132, streams=streams)
 
 
 def _shift(p, rows):
@@ -609,11 +634,61 @@ def _segmented_dtilde(x, p, plan):
     return y.reshape(-1, b)[:n].to(x.dtype)
 
 
-@pytest.mark.parametrize("n,b,sms", [(1, 1, 1), (17, 1, 1), (48, 2, 4),
-                                     (257, 3, 4), (300, 3, 4),
-                                     (511, 1, 64), (513, 5, 8),
-                                     (700, 1, 1), (2000, 40, 1),
-                                     (1000, 1, 132)])
+def _segmented_l(x, p, plan, reverse):
+    """B4's algebra in plain f64 PyTorch: the forward stream of
+    `_segmented_dtilde` alone (chunk states, the in-block scan, the carry
+    lanes, the stream from each chunk's start state), over x's rows bottom
+    up for Lᵀ (the kernel's row map)."""
+    n, b = x.shape
+    ch, g, k = plan.chunk, plan.groups, plan.segments
+    pasc = fgc_scan.pascal_matrix(p, torch.float64)
+    xs = torch.zeros((k * plan.seg_rows, b), dtype=torch.float64)
+    xs[:n] = torch.flip(x, (0,)) if reverse else x
+    xs = xs.reshape(k, g, ch, b).permute(1, 0, 2, 3)     # (G, K, CHUNK, B)
+
+    def absorb(a, row):
+        return torch.einsum("rs,...sb->...rb", pasc, a) + row[..., None, :]
+
+    f = torch.zeros((g, k, p + 1, b), dtype=torch.float64)
+    for j in range(ch):
+        f = absorb(f, xs[:, :, j])
+    # pass 1: each segment's total
+    tot = _group_scan(f, f, lambda d: _shift(p, d * ch))[0][-1]
+    # carry: lanes of lane_segs segments, zero states past the end
+    lanes, q = plan.lanes, plan.lane_segs
+    pad = torch.zeros((lanes * q - k, p + 1, b), dtype=torch.float64)
+    a_ = torch.cat([tot, pad]).reshape(lanes, q, p + 1, b)
+    ps = _shift(p, plan.seg_rows)
+    u = torch.zeros((lanes, p + 1, b), dtype=torch.float64)
+    for j in range(q):
+        u = torch.einsum("rs,lsb->lrb", ps, u) + a_[:, j]
+    ui = _group_scan(u, u, lambda d: _shift(p, d * plan.seg_rows * q))[0]
+    e = torch.cat([torch.zeros((1, p + 1, b), dtype=torch.float64),
+                   ui[:-1]])
+    cf = torch.empty_like(a_)
+    for j in range(q):
+        cf[:, j] = e
+        e = torch.einsum("rs,lsb->lrb", ps, e) + a_[:, j]
+    cf = cf.reshape(-1, p + 1, b)[:k]
+    # pass 2: seed the first group, scan, take the neighbour's
+    f = f.clone()
+    f[0] = torch.einsum("rs,ksb->krb", _shift(p, ch), cf) + f[0]
+    fi = _group_scan(f, f, lambda d: _shift(p, d * ch))[0]
+    a = torch.cat([cf[None], fi[:-1]])
+    lo = torch.empty((g, k, ch, b), dtype=torch.float64)
+    for j in range(ch):
+        lo[:, :, j] = a[:, :, p]
+        a = absorb(a, xs[:, :, j])
+    y = lo.permute(1, 0, 2, 3).reshape(-1, b)[:n]
+    return (torch.flip(y, (0,)) if reverse else y).to(x.dtype)
+
+
+_ALGEBRA_SHAPES = pytest.mark.parametrize("n,b,sms", [
+    (1, 1, 1), (17, 1, 1), (48, 2, 4), (257, 3, 4), (300, 3, 4),
+    (511, 1, 64), (513, 5, 8), (700, 1, 1), (2000, 40, 1), (1000, 1, 132)])
+
+
+@_ALGEBRA_SHAPES
 @pytest.mark.parametrize("p", range(fgc_scan.MAX_POWER + 1))
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_dtilde_carry_algebra_matches_plain(n, b, sms, p, itemsize):
@@ -631,6 +706,37 @@ def test_dtilde_carry_algebra_matches_plain(n, b, sms, p, itemsize):
     assert ((got - want).abs() <= 2 * (p + 2) * n * u * scale).all()
     if n > 64:
         assert plan.segments > 1
+
+
+@_ALGEBRA_SHAPES
+@pytest.mark.parametrize("p", range(fgc_scan.MAX_POWER + 1))
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_l_carry_algebra_matches_plain(n, b, sms, p, itemsize, reverse):
+    """B4's one-stream scan (its plan, the chunk states, the fold over
+    groups, the carry lanes, and for Lᵀ the row map) in f64 equals the
+    plain recursion within the recursive-sum bound 2(p+2)·N·u·(L|x|) (Lᵀ|x|
+    for Lᵀ), for every p and both dtypes' plans.  The kernel itself is held
+    on the card."""
+    x = _t(np.random.default_rng(n * 1000 + b).normal(size=(n, b)))
+    plan = fgc_scan.dtilde_plan(n, b, itemsize, sms, streams=1)
+    got = _segmented_l(x, p, plan, reverse)
+    want = fgc_scan.apply_l_plain(x, p, reverse)
+    scale = fgc_scan.apply_l_plain(x.abs(), p, reverse)
+    u = torch.finfo(torch.float64).eps / 2
+    assert ((got - want).abs() <= 2 * (p + 2) * n * u * scale).all()
+    if n > 64:
+        assert plan.segments > 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,b", [(1, 1), (45, 6), (300, 3)])
+def test_l_plain_reverse_is_the_flip_identity(dtype, n, b):
+    """apply_l_plain(x, reverse=True) is flip(L flip(x)), bit for bit."""
+    x = _t(np.random.default_rng(n).normal(size=(n, b)).astype(dtype))
+    want = torch.flip(fgc_scan.apply_l_plain(torch.flip(x, (0,)), 2), (0,))
+    got = fgc_scan.apply_l_plain(x, 2, reverse=True)
+    assert got.dtype == x.dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mangled,want", [

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the Sinkhorn half-step kernels (B1 row, B2 column), the fused FGC
-D̃ apply (B3), the Dykstra half-sweep (B5), the factor Gram chain (B6) and
-the gradient assembly (B7) of one source tree on one NVIDIA card.
+D̃ apply (B3), the FGC L apply (B4, as L and as Lᵀ), the Dykstra half-sweep
+(B5), the factor Gram chain (B6) and the gradient assembly (B7) of one
+source tree on one NVIDIA card.
 
     python3 tools/half_step_times.py [--src DIR] [--reps 50] [--only KIND]
 
@@ -14,8 +15,13 @@ f32 duals (Run C), N = 10⁵ at r = 8, 16, 32 in f64 (Run D) and N = 8192, r =
 16 in f64 (Run E); B3 (p = 1 unless stated) on x of 8192 × 8192 in f32 and
 f64 (Run A's gradient), 64 × 262144 in f64 at p = 1 and 2 (Run B's), 8192 ×
 16 in f64 (Run E's D_X Q) and 8192 × 1 in f32 and f64 at p = 1 and 2 (the
-squared-distance applies); B6 and B7 at N = 10⁶, c = 5, r = 16 in f32 and
-f64 (Run C) and N = 10⁵ at r = 8, 16, 32 in f64 (Run D). B5, B6 and B7 are
+squared-distance applies); B4's L and Lᵀ at p = 1 on 8192 × 8192, 8192 ×
+16 and 8192 × 1 in f32 and f64, and the public ``apply_L``/``apply_LT``
+(``backend="kernel"``, the whole call) at 8192² f32 — on a tree whose B4
+wrapper has no ``reverse`` (before the reversed scan) Lᵀ is timed as
+``apply_LT``, its two flips included, and labelled so; B6 and B7 at N =
+10⁶, c = 5, r = 16 in f32 and f64 (Run C) and N = 10⁵ at r = 8, 16, 32 in
+f64 (Run D). B5, B6 and B7 are
 timed twice: back to back on the same inputs ("warm": at 10⁵ and 8192 rows
 they stay in the 50 MB L2), and each launch after a 64 MB write that
 flushes L2 ("cold", an event pair around each launch). Before each timed
@@ -30,6 +36,7 @@ each in turns (A, B, B, A) in one session on one card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import subprocess
@@ -42,7 +49,8 @@ SEED = 20240413
 SLEEP_CYCLES = 20_000_000              # ~10 ms at the H100's 1.98 GHz
 FGC_CASES = (("f32", 8192, 8192, 1), ("f64", 8192, 8192, 1),
              ("f64", 64, 262144, 1), ("f64", 64, 262144, 2),
-             ("f64", 8192, 16, 1), ("f32", 8192, 1, 1), ("f64", 8192, 1, 1),
+             ("f32", 8192, 16, 1), ("f64", 8192, 16, 1), ("f32", 8192, 1, 1),
+             ("f64", 8192, 1, 1),
              ("f32", 8192, 1, 2), ("f64", 8192, 1, 2))
 LR_CASES = (("f32", 10 ** 6, 16, "float32", "float32"),
             ("f64", 10 ** 6, 16, "float64", "float64"),
@@ -154,26 +162,41 @@ def lowrank(torch, ops, gen, start, end, args):
 
 
 def fgc(torch, ops, gen, start, end, args):
+    from repro_torch.core import fgc as core_fgc
+    reverse = "reverse" in inspect.signature(ops.fgc_apply_l).parameters
     for tag, n, cols, p in FGC_CASES:
         dt = torch.float32 if tag == "f32" else torch.float64
         x = torch.randn((n, cols), generator=gen, device="cuda", dtype=dt)
         # x read once and y written once
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        ops.fgc_apply_dtilde(x, p)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            ops.fgc_apply_dtilde(x, p)
-        host = (time.perf_counter() - t0) / args.reps * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / args.reps
-        print(json.dumps({"src": args.src, "kernel": "dtilde", "dtype": tag,
-                          "n": n, "cols": cols, "p": p, "ms": ms,
-                          "host_ms": host, "bound_ms": bound,
-                          "of_bound": bound / ms}), flush=True)
+        cases = {"dtilde": lambda: ops.fgc_apply_dtilde(x, p)}
+        if n == 8192 and p == 1:
+            cases["l"] = lambda: ops.fgc_apply_l(x, p)
+            if reverse:
+                cases["lt"] = lambda: ops.fgc_apply_l(x, p, reverse=True)
+            else:
+                cases["lt as apply_LT, flips included"] = \
+                    lambda: core_fgc.apply_LT(x, 0, p, "kernel")
+            if cols == n and tag == "f32":
+                cases["apply_L"] = lambda: core_fgc.apply_L(x, 0, p, "kernel")
+                cases["apply_LT"] = \
+                    lambda: core_fgc.apply_LT(x, 0, p, "kernel")
+        for kernel, fn in cases.items():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
+                fn()
+            host = (time.perf_counter() - t0) / args.reps * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / args.reps
+            print(json.dumps({"src": args.src, "kernel": kernel,
+                              "dtype": tag, "n": n, "cols": cols, "p": p,
+                              "ms": ms, "host_ms": host, "bound_ms": bound,
+                              "of_bound": bound / ms}), flush=True)
         del x
 
 
