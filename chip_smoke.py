@@ -24,7 +24,11 @@ result line:
    scan), also at (8192, 16) f64 and on 300 000 rows of one f64 column;
    B3 and B4 twice on the same inputs and on an x one element off a
    16-byte boundary, which must give the same bits.  Each line prints the
-   measured difference beside its tolerance and the reason for it.
+   measured difference beside its tolerance and the reason for it.  Then
+   lanes: B1, B2, B3, B5, B6 and B7 each launched once with 16 lanes at
+   Runs F and G's shapes (B3's lanes folded into its columns), ragged with
+   zero-mass padding and one ε a lane, against each lane launched alone:
+   the same bits.
 3. The main path through ``repro_torch.core.entropic_gw``: a small check
    of the FGC kernels against the dense oracle, Run A (``Grid1D(8192)``,
    the paper's §4.1 settings, f32 and f64), Run B (``Grid2D(64)``, f64,
@@ -39,7 +43,16 @@ result line:
    just after.  One more Run A f32, Run B and Run C f64 solve each runs
    under ``torch.profiler`` (CPU and CUDA): the device's busy share over it
    and the device time of its top kernels; for Run C, also B6's and B7's
-   kernels by name, B6 one device launch a call.
+   kernels by name, B6 one device launch a call.  Then batches through
+   ``repro_torch.core.entropic_gw_batch``: Run F (16 ragged ``Grid1D``
+   lanes of 1024–2048 points padded to 2048, f64, one ε a lane from the
+   serving cycle, adaptive with annealing), each lane against its solo
+   solve, against the lanes in reversed order and against a segmented
+   solve (the same bits), and 4 lanes against the plain path at 3 outer
+   steps; profiled once.  Run G (4 ragged 3-D Gaussian cloud lanes of
+   80 000–100 000 points padded to 100 000, rank 16, f64), each lane
+   against its solo solve.  Both check the launches: one a half-step (B5:
+   a sweep side) for all lanes.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -47,7 +60,8 @@ result line:
    (8192, 1) in each dtype beside one ``torch.matmul`` against the dense
    D̃, L or Lᵀ (the library yardstick) and the ``cumsum`` backend, and at
    p = 2 on (8192, 1), B4 on 300 000 rows; B5–B7 in f64 at Runs C and D's
-   shapes (B5 also at E's), with L2 warm and flushed.
+   shapes (B5 also at E's), with L2 warm and flushed; every kernel at Runs
+   F and G's batched shapes beside one lane alone.
 5. The ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -240,15 +254,18 @@ def fgc_apply(ops, fs, kind):
             "fgc_apply_l", "Lᵀ" if rev else "L")
 
 
-def fgc_case(torch, ops, fs, kind, x, p, label, results, plain_device=None):
+def fgc_case(torch, ops, fs, kind, x, p, label, results, plain_device=None,
+             lanes=1):
     """One FGC kernel against its plain recursion (run on `plain_device`,
     default x's: the host for a long column, whose row-by-row loop of small
     ops is faster there).  The bound of a recursive sum of N terms: |Δy_i|
     ≤ (p+2)·N·u·(M|x|)_i for each version, M the applied matrix (D̃, L or
-    Lᵀ), so the two differ by at most twice that."""
+    Lᵀ), so the two differ by at most twice that.  ``lanes`` > 1 folds that
+    many problems into B3's columns (its batched plan); the plain
+    recursion is column-wise, so it is the same function."""
     fn, plain, name, mat = fgc_apply(ops, fs, kind)
     before = ops.LAUNCHES[name]
-    got = fn(x, p)
+    got = fn(x, p) if lanes == 1 else fn(x, p, lanes)
     torch.cuda.synchronize()
     check(ops.LAUNCHES[name] == before + 1,
           f"{label}: the wrapper did not launch its kernel")
@@ -644,6 +661,140 @@ def phase_lowrank_kernels(torch, ops, lr, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, lanes: a lane's bits do not depend on the batch it rides in
+# ---------------------------------------------------------------------------
+
+LANES = 16                 # Run F's lanes, and every kernel's lane check
+N_F = 2048                 # Run F's bucket: a multiple of size_bucket=64
+EPS_CYCLE = (5e-2, 2e-2, 8e-3, 2e-3)   # BENCH_serve.json's eps_cycle
+N_G, N_G_MIN, LANES_G = 100_000, 80_000, 4   # Run G: Run D's scale
+
+
+def ragged_sizes(np, lo, hi, lanes, seed):
+    """(lanes, 2) sizes in [lo, hi] from a numpy seed: Runs F and G's
+    problems, each side padded to hi."""
+    return np.random.default_rng(seed).integers(lo, hi + 1, size=(lanes, 2))
+
+
+def same_bits(torch, label, batched, singles):
+    """Every lane of a batched launch's outputs against the same lane
+    launched alone: the same bits (−inf where −inf), tolerance 0."""
+    worst, ok = 0.0, True
+    for b, single in enumerate(singles):
+        for x, y in zip(batched, single):
+            if not torch.equal(x[b], y):
+                ok = False
+                d = (x[b] - y).abs().nan_to_num(nan=math.inf)
+                worst = max(worst, float(d.max()))
+    say(f"  {label}: {len(singles)} lanes in one launch against each lane "
+        f"launched alone: max |Δ| {worst:.3e} (tolerance 0: the same bits; "
+        f"each lane takes one lane's plan)")
+    check(ok, f"{label}: a lane's bits depend on the batch")
+    return worst
+
+
+def phase_lane_kernels(torch, np, ops, sk, fs, lr):
+    """B1, B2, B3, B5, B6, B7 launched once with LANES lanes at Runs F and
+    G's shapes (B3's lanes folded into its columns) and once on each lane
+    alone, for equal bits; and the batched launch against the kernel's
+    plain version on the same zero-mass padded inputs, one ε a lane, at
+    the bars of the phase-2 lines above.  Inputs from a generator of their
+    own, so every draw of the phases before and after stays put."""
+    say("  lanes: each kernel with 16 lanes against each lane alone and "
+        "against its plain version")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    dev, dt = "cuda", torch.float64
+    errs = {}
+    lanes = range(LANES)
+    sizes = ragged_sizes(np, N_F // 2, N_F, LANES, SEED + 19)
+    cost = torch.rand((LANES, N_F, N_F), generator=gen, device=dev, dtype=dt)
+    g = torch.randn((LANES, N_F), generator=gen, device=dev, dtype=dt)
+    f = torch.randn((LANES, N_F), generator=gen, device=dev, dtype=dt)
+    log_mu = torch.full((LANES, N_F), -math.log(N_F), device=dev, dtype=dt)
+    log_nu = log_mu.clone()
+    for b, (m, n) in enumerate(sizes):      # zero-mass padding, as Run F's
+        log_mu[b, m:] = log_nu[b, n:] = -math.inf
+        f[b, m:] = g[b, n:] = -math.inf
+    eps = torch.tensor([EPS_CYCLE[b % 4] for b in lanes], dtype=dt,
+                       device=dev)
+    cycle = ("the sum's order moves lse by one ulp, which ε = 0.05 maps to "
+             "up to two of the ε-scaled operand (ROADMAP §C)")
+    for kind, fn, vec, logw in (
+            ("B1 row", ops.sinkhorn_row_update_batched, g, log_mu),
+            ("B2 col", ops.sinkhorn_col_update_batched, f, log_nu)):
+        out = fn(cost, vec, logw, eps)
+        errs[f"{kind} lanes"] = same_bits(
+            torch, f"{kind} f64 C{LANES}x{N_F}x{N_F}", (out,),
+            [(fn(cost[b:b + 1], vec[b:b + 1], logw[b:b + 1],
+                 eps[b:b + 1])[0],) for b in lanes])
+        sinkhorn_case(torch, ops, sk, kind.split()[1], cost, vec, logw, eps,
+                      2, f"{kind} f64 C{LANES}x{N_F}x{N_F} zero-mass padded, "
+                      "eps cycle, against plain", errs, cycle)
+    del cost
+    for cols, p in ((N_F, 1), (1, 2)):      # the plan's apply, the C1 term's
+        x = torch.randn((N_F, LANES * cols), generator=gen, device=dev,
+                        dtype=dt)
+        out = ops.fgc_apply_dtilde(x, p, lanes=LANES)
+        per = out.reshape(N_F, LANES, cols).movedim(1, 0)
+        errs[f"B3 lanes {cols}"] = same_bits(
+            torch, f"B3 dtilde f64 x{N_F}x({LANES}x{cols}) p={p}", (per,),
+            [(ops.fgc_apply_dtilde(x[:, b * cols:(b + 1) * cols]
+                                   .contiguous(), p),) for b in lanes])
+        fgc_case(torch, ops, fs, "dtilde", x, p,
+                 f"B3 dtilde f64 x{N_F}x({LANES}x{cols}) p={p} against "
+                 "plain", errs, lanes=LANES)
+    del x, out, per
+    sizes = ragged_sizes(np, N_G_MIN, N_G, LANES, SEED + 20)
+    rows = torch.arange(N_G, device=dev)[None, :]
+    live = rows < torch.tensor(sizes[:, 0], device=dev)[:, None]
+    lk = torch.randn((LANES, N_G, R_LR), generator=gen, device=dev, dtype=dt)
+    lk = torch.where(live[:, :, None], lk, -math.inf)
+    gcol = torch.randn((LANES, R_LR), generator=gen, device=dev, dtype=dt)
+    logw = torch.where(live, -math.log(N_G), -math.inf).to(dt)
+    out = ops.lr_dykstra_half_batched(lk, gcol, logw)
+    errs["B5 lanes"] = same_bits(
+        torch, f"B5 f64 lk{LANES}x{N_G}x{R_LR}", out,
+        [tuple(o[0] for o in ops.lr_dykstra_half_batched(
+            lk[b:b + 1], gcol[b:b + 1], logw[b:b + 1])) for b in lanes])
+    dykstra_case(torch, ops, lr, lk, gcol, logw,
+                 f"B5 f64 lk{LANES}x{N_G}x{R_LR} zero-mass padded, against "
+                 "plain", errs)
+    del lk, out
+    z = live[:, :, None].to(dt)
+    a = torch.randn((LANES, N_G, C_LR), generator=gen, device=dev,
+                    dtype=dt) * z
+    bf = torch.randn((LANES, N_G, C_LR), generator=gen, device=dev,
+                     dtype=dt) * z
+    q = torch.rand((LANES, N_G, R_LR), generator=gen, device=dev,
+                   dtype=dt) * z / N_G
+    w = torch.rand((LANES, N_G), generator=gen, device=dev, dtype=dt) * z[..., 0]
+    out = ops.lr_gram_chain_batched(a, bf, q, w)
+    errs["B6 lanes"] = same_bits(
+        torch, f"B6 f64 N{N_G} c{C_LR} r{R_LR} x{LANES}", out,
+        [tuple(o[0] for o in ops.lr_gram_chain_batched(
+            a[b:b + 1], bf[b:b + 1], q[b:b + 1], w[b:b + 1]))
+         for b in lanes])
+    gram_case(torch, ops, lr, a, bf, q, w,
+              f"B6 f64 N{N_G} c{C_LR} r{R_LR} x{LANES} zero rows padded, "
+              "against plain", errs)
+    wm = torch.randn((LANES, C_LR, R_LR), generator=gen, device=dev,
+                     dtype=dt)
+    s_, t_, iq = (torch.randn((LANES, R_LR), generator=gen, device=dev,
+                              dtype=dt) for _ in range(3))
+    out = ops.lr_grad_combine_batched(a, wm, w, s_, t_, iq)
+    errs["B7 lanes"] = same_bits(
+        torch, f"B7 f64 N{N_G} c{C_LR} r{R_LR} x{LANES}", (out,),
+        [(ops.lr_grad_combine_batched(a[b:b + 1], wm[b:b + 1], w[b:b + 1],
+                                      s_[b:b + 1], t_[b:b + 1],
+                                      iq[b:b + 1])[0],) for b in lanes])
+    combine_case(torch, ops, lr, a, wm, w, s_, t_, iq,
+                 f"B7 f64 N{N_G} c{C_LR} r{R_LR} x{LANES} zero rows padded, "
+                 "against plain", errs)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -964,11 +1115,17 @@ def lockstep(torch, core, cfg, gx, gy, mu, label, one_step=False):
                                geom_y=op_p.geom_y)
     ck = cp = core.init_carry(state0, cfg.outer_iters, mu.device)
     apart, worst = [], 0.0
+
+    def one(step, s, eps):       # the step closures run on lanes: one lane
+        return step(type(s).stack([s]),
+                    torch.tensor([eps], dtype=torch.float64,
+                                 device=mu.device), 0.0)[0].lane(0)
+
     while cp.t < cfg.outer_iters and not (cp.done or ck.done):
         if one_step:
             eps, s = ctl.eps_at(cp.stage), cp.state
-            nk, npl = step_k(s, eps, 0.0)[0], step_p(s, eps, 0.0)[0]
-            n64 = step_64(up(core, s), eps, 0.0)[0]
+            nk, npl = one(step_k, s, eps), one(step_p, s, eps)
+            n64 = one(step_64, up(core, s), eps)
             dk = float(up(core, nk).delta(n64))
             dp = float(up(core, npl).delta(n64))
             check(dk <= 4 * dp, f"{label} step {cp.t + 1}: the kernel step "
@@ -1148,6 +1305,237 @@ def phase_lowrank_path(torch, np, ops, core):
         lambda: core.entropic_gw(grid, grid, mu_e, nu_e, core.GWConfig(
             backend="cumsum", lowrank_backend="torch", **base)))
     compare_lowrank(torch, "Run E float64", rk, rp, 1e-8, 1e-6)
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 3, batches: Runs F and G through entropic_gw_batch
+# ---------------------------------------------------------------------------
+
+class SweepCount:
+    """Records how many updates each chunked inner loop ran for its batch
+    (the most any lane used: the lanes still running advance together), so
+    the launch counts can be held to one launch a half-step for all lanes."""
+
+    def __init__(self, core):
+        self.mod, self.calls = core.sinkhorn, []
+        self.real = self.mod._chunked_loop
+
+    def __enter__(self):
+        def loop(*args, **kw):
+            carry, used = self.real(*args, **kw)
+            self.calls.append(max(used, default=0))
+            return carry, used
+        self.mod._chunked_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._chunked_loop = self.real
+
+
+def run_batch(torch, ops, core, label, fn):
+    """`run_path` with the batch's inner loops counted."""
+    with SweepCount(core) as sweeps:
+        out, counts, wall = run_path(torch, ops, label, fn)
+    return out, counts, wall, sum(sweeps.calls)
+
+
+def compacted(core, batch, probs, ctls, outer_cap):
+    """A batch solved one outer step a segment through the segmented
+    surface, its finished lanes dropped from the batch (and their carries
+    from the resume state) after each segment: the lanes still running
+    ride on alone.  Returns (each problem's last result, segments)."""
+    live, carry, out, n_seg = list(range(len(probs))), None, {}, 0
+    while live:
+        res, carry = batch([probs[b] for b in live], [ctls[b] for b in live],
+                           resume_state=carry, max_outer_segment=1)
+        n_seg += 1
+        out.update(zip(live, res))
+        keep = [i for i in range(len(live))
+                if not carry.done[i] and carry.t[i] < outer_cap]
+        if len(keep) < len(live):
+            carry = core.MirrorCarry.stack([carry.lane(i) for i in keep]) \
+                if keep else None
+            live = [live[i] for i in keep]
+    return [out[b] for b in range(len(probs))], n_seg
+
+
+def lanes_equal(torch, a, b):
+    """Two results of one problem with the same bits and counts."""
+    ia, ib = a.info, b.info
+    same = (ia.outer_iters, ia.inner_iters, ia.converged) == \
+        (ib.outer_iters, ib.inner_iters, ib.converged) and \
+        torch.equal(a.value, b.value)
+    if a.plan is not None:
+        return same and torch.equal(a.plan, b.plan) and \
+            torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    return same and all(torch.equal(x, y) for x, y in zip(
+        (a.coupling.q, a.coupling.r, a.coupling.g),
+        (b.coupling.q, b.coupling.r, b.coupling.g)))
+
+
+def check_batch_launches(label, counts, results, sweeps, segments=1,
+                         factored=False):
+    """A batch launches each kernel once for all lanes: B1/B2 once an
+    inner update of the batch (B5 twice a Dykstra sweep), B3 twice a
+    gradient plus four a segment (the C1 applies and the energy's product)
+    on grids, B6 twice a gradient plus two a segment and B7 twice a
+    gradient on factor pairs; the batch runs as many outer steps as its
+    longest lane."""
+    steps = max(r.info.outer_iters for r in results)
+    if factored:
+        want = {"lr_dykstra_half": 2 * sweeps,
+                "lr_gram_chain": 2 * steps + 2 * segments,
+                "lr_grad_combine": 2 * steps}
+    else:
+        want = {"sinkhorn_row_update": sweeps,
+                "sinkhorn_col_update": sweeps,
+                "fgc_apply_dtilde": 2 * steps + 4 * segments}
+    got = {k: counts[k] for k in want}
+    per_lane = sum(r.info.inner_iters for r in results)
+    say(f"  {label}: launches {got}, expected {want} (the lanes' own inner "
+        f"counts sum to {per_lane}: one launch a lane would be that many)")
+    check(got == want, f"{label}: launch counts differ from the code's")
+    check(sweeps < per_lane, f"{label}: no fewer launches than lanes' "
+          "updates")
+
+
+def phase_batch_path(torch, np, ops, core):
+    """Run F (16 ragged Grid1D lanes at full width, per-lane ε) and Run G
+    (4 ragged 10⁵-point cloud lanes, factored plan) through
+    `entropic_gw_batch`, each lane against its solo solve."""
+    say("phase 3, batches: entropic_gw_batch")
+    start = time.perf_counter()
+    # the ε schedule runs on the host: how often the card's f64 pow rounds
+    # decay^t otherwise than the host's (the schedule's values before)
+    off = [(d, t) for d in (0.5, 0.7) for t in range(64)
+           if float(torch.tensor(d, dtype=torch.float64, device="cuda")
+                    ** torch.tensor(float(t), dtype=torch.float64,
+                                    device="cuda")) != d ** float(t)]
+    say(f"  ε schedule: the card's f64 pow rounds {len(off)} of 128 powers "
+        f"decay^t (decay 0.5, 0.7; t < 64) otherwise than the host's, e.g. "
+        f"{off[:3]}; the loop evaluates the schedule on the host")
+    launches = {k: 0 for k in ops.LAUNCHES}
+    walls = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    sizes = ragged_sizes(np, N_F // 2, N_F, LANES, SEED + 21)
+    probs = [(core.Grid1D(int(m), 1 / (m - 1), 1),
+              core.Grid1D(int(n), 1 / (n - 1), 1),
+              measures(np, int(m), SEED + 100 + 2 * b),
+              measures(np, int(n), SEED + 101 + 2 * b))
+             for b, (m, n) in enumerate(sizes)]
+    knobs = dict(tol=1e-5, eps_init=5e-2, anneal_decay=0.5)
+    ctls = [core.SolveControls.make(EPS_CYCLE[b % 4], device="cuda", **knobs)
+            for b in range(LANES)]
+    cfg = core.GWConfig(eps=EPS_CYCLE[-1], outer_iters=30,
+                        sinkhorn_iters=300, backend="kernel",
+                        sinkhorn_backend="auto", **knobs)
+    bucket = (N_F, N_F)
+
+    def batch(ps, cs, **kw):
+        return core.entropic_gw_batch(ps, cfg, pad_to=bucket, controls=cs,
+                                      **kw)
+
+    rk, counts, walls["F batch"], sweeps = run_batch(
+        torch, ops, core, f"Run F {LANES} lanes Grid1D {sizes.min()}–"
+        f"{sizes.max()} padded to {N_F} f64 kernels",
+        lambda: batch(probs, ctls))
+    add(counts)
+    check_batch_launches("Run F", counts, rk, sweeps)
+    outer = [r.info.outer_iters for r in rk]
+    say(f"  Run F lanes: outer {outer}, inner "
+        f"{[r.info.inner_iters for r in rk]}, converged "
+        f"{[r.info.converged for r in rk]}")
+    check(len(set(outer)) > 1, "Run F: every lane stopped at one count")
+    check(all(bool(torch.isfinite(r.plan).all()) for r in rk),
+          "Run F: non-finite plan")
+    t0 = time.perf_counter()
+    for b, (p, c) in enumerate(zip(probs, ctls)):
+        solo = core.entropic_gw(*p, cfg, controls=c)
+        compare_runs(torch, f"Run F lane {b} (ε {EPS_CYCLE[b % 4]:g}) vs "
+                     "its solo solve", rk[b], solo, 1e-8, 1e-6)
+    torch.cuda.synchronize()
+    walls["F 16 solo solves"] = time.perf_counter() - t0
+    rev = batch(probs[::-1], ctls[::-1])
+    check(all(lanes_equal(torch, a, b) for a, b in zip(rk, rev[::-1])),
+          "Run F: reversing the lanes changed a lane's bits")
+    say("  Run F reversed: every lane the same bits and counts")
+    seg, n_seg = None, 0
+    while seg is None or any(not d and t < cfg.outer_iters
+                             for t, d in zip(seg.t, seg.done)):
+        res, seg = batch(probs, ctls, resume_state=seg, max_outer_segment=6)
+        n_seg += 1
+    check(all(lanes_equal(torch, a, b) for a, b in zip(rk, res)),
+          "Run F: the segmented solve differs from the one-shot")
+    say(f"  Run F segmented ({n_seg} segments of ≤ 6 outer steps): every "
+        "lane the same bits and counts as the one-shot")
+    del rev, res, seg
+    # the masked batch runs its finished lanes until the longest stops; a
+    # scheduler can instead drop them between segments (ROADMAP A12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed, n_seg = compacted(core, batch, probs, ctls, cfg.outer_iters)
+    torch.cuda.synchronize()
+    walls["F compacted"] = time.perf_counter() - t0
+    for b in range(LANES):
+        compare_runs(torch, f"Run F lane {b} compacted vs masked", packed[b],
+                     rk[b], 1e-8, 1e-6)
+    same = all(lanes_equal(torch, a, b) for a, b in zip(rk, packed))
+    say(f"  Run F compacted ({n_seg} one-step segments, finished lanes "
+        f"dropped between them): {walls['F compacted']:.3f} s against "
+        f"{walls['F batch']:.3f} s masked; every lane "
+        f"{'the same bits' if same else 'OTHER bits'} as the masked batch")
+    del packed
+    profile_solve(torch, "Run F", lambda: batch(probs, ctls))
+    # kernels against the plain path at a smaller depth
+    small = dataclasses.replace(cfg, outer_iters=3, tol=0.0)
+    ctl0 = [dataclasses.replace(c, tol=c.tol * 0) for c in ctls[:4]]
+    kp = core.entropic_gw_batch(probs[:4], small, pad_to=bucket,
+                                controls=ctl0)
+    pp = core.entropic_gw_batch(probs[:4], dataclasses.replace(
+        small, backend="cumsum", sinkhorn_backend="torch"), pad_to=bucket,
+        controls=ctl0)
+    for b in range(4):
+        compare_runs(torch, f"Run F lane {b} kernels vs plain (tol 0, 3 "
+                     "outer steps)", kp[b], pp[b], 1e-8, 1e-6)
+    del rk, kp, pp
+
+    sizes = ragged_sizes(np, N_G_MIN, N_G, LANES_G, SEED + 22)
+    probs = [(cloud(torch, np, int(m), SEED + 200 + 2 * b, torch.float64),
+              cloud(torch, np, int(n), SEED + 201 + 2 * b, torch.float64),
+              torch.full((int(m),), 1.0 / m, dtype=torch.float64,
+                         device="cuda"),
+              torch.full((int(n),), 1.0 / n, dtype=torch.float64,
+                         device="cuda"))
+             for b, (m, n) in enumerate(sizes)]
+    cfg = core.GWConfig(plan_rank=R_LR, **LR_CONTROLS)
+    rk, counts, walls["G batch"], sweeps = run_batch(
+        torch, ops, core, f"Run G {LANES_G} lanes clouds {sizes.min()}–"
+        f"{sizes.max()} points padded to {N_G} rank {R_LR} f64 kernels",
+        lambda: core.entropic_gw_batch(probs, cfg, pad_to=(N_G, N_G)))
+    add(counts)
+    check_batch_launches("Run G", counts, rk, sweeps, factored=True)
+    t0 = time.perf_counter()
+    for b, p in enumerate(probs):
+        compare_lowrank(torch, f"Run G lane {b} vs its solo solve", rk[b],
+                        core.entropic_gw(*p, cfg), 1e-8, 1e-6)
+    torch.cuda.synchronize()
+    walls["G 4 solo solves"] = time.perf_counter() - t0
+    # kernels against the plain path at a smaller depth, as Run F's
+    small = dataclasses.replace(cfg, outer_iters=3, tol=0.0)
+    kp = core.entropic_gw_batch(probs, small, pad_to=(N_G, N_G))
+    pp = core.entropic_gw_batch(probs, dataclasses.replace(
+        small, lowrank_backend="torch"), pad_to=(N_G, N_G))
+    for b in range(LANES_G):
+        compare_lowrank(torch, f"Run G lane {b} kernels vs plain (tol 0, 3 "
+                        "outer steps)", kp[b], pp[b], 1e-8, 1e-6)
+    del rk, kp, pp
+    say(f"  Runs F and G with their checks: {time.perf_counter() - start:.1f}"
+        " s of wall in all")
     return launches, walls
 
 
@@ -1354,6 +1742,92 @@ def lowrank_shape_times(torch, ops, gen):
         del lk
 
 
+def batch_shape_times(torch, ops, lr, ss):
+    """Each kernel of Runs F and G at their batched shapes, f64: B1/B2 on
+    16 lanes of 2048², B3 on 16 lanes of (2048, 2048) folded into its
+    columns, B5–B7 on Run G's 4 lanes of 10⁵ rows (c = 5, r = 16); each
+    beside its bytes bound, beside one lane alone times the lanes, and
+    with the grid's blocks against one wave of the card (B2's splits, B5's
+    and B6's blocks are one lane's each, so the lanes multiply the
+    waves).  Inputs from a generator of their own."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+    dev, dt = "cuda", torch.float64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+
+    def line(key, fn, one, lanes, nbytes, flops, grid=""):
+        ms = time_ms(torch, fn, reps=10)
+        one_ms = time_ms(torch, one, reps=10)
+        b, by = bound_ms(nbytes, flops, "float64")
+        rows[key] = (ms, b, by)
+        say(f"  {key}: {ms:.5f} ms, bound {b:.5f} ms ({by}), {b / ms:.1%} "
+            f"of bound; one lane alone {one_ms:.5f} ms × {lanes} = "
+            f"{one_ms * lanes:.5f} ms{grid}")
+
+    cost = torch.rand((LANES, N_F, N_F), generator=gen, device=dev, dtype=dt)
+    vec = torch.randn((LANES, N_F), generator=gen, device=dev, dtype=dt)
+    logw = torch.full((LANES, N_F), -math.log(N_F), device=dev, dtype=dt)
+    eps = torch.tensor([EPS_CYCLE[b % 4] for b in range(LANES)], dtype=dt,
+                       device=dev)
+    splits = ss.col_split(LANES, N_F, N_F, 8, sms)[0]
+    col_blocks = LANES * splits * -(-N_F // 64)
+    for kind in ("row", "col"):
+        fn = getattr(ops, f"sinkhorn_{kind}_update_batched")
+        grid = "" if kind == "row" else (
+            f"; {col_blocks} blocks ({LANES} lanes × {splits} splits × "
+            f"{-(-N_F // 64)} column tiles) = "
+            f"{col_blocks / (ss.COL_BLOCKS_PER_SM * sms):.1f}× "
+            f"COL_BLOCKS_PER_SM·SMs")
+        line(f"B{1 if kind == 'row' else 2} {kind} f64 C{LANES}x{N_F}x{N_F}"
+             " (Run F)", lambda: fn(cost, vec, logw, eps),
+             lambda: fn(cost[:1], vec[:1], logw[:1], eps[:1]), LANES,
+             (cost.numel() + 3 * LANES * N_F) * 8, 5.0 * cost.numel(), grid)
+    del cost
+    x = torch.randn((N_F, LANES * N_F), generator=gen, device=dev, dtype=dt)
+    x1 = x[:, :N_F].contiguous()
+    line(f"B3 dtilde f64 x{N_F}x({LANES}x{N_F}) p=1 (Run F)",
+         lambda: ops.fgc_apply_dtilde(x, 1, lanes=LANES),
+         lambda: ops.fgc_apply_dtilde(x1, 1), LANES, 2 * x.numel() * 8,
+         2.0 * 2 * 3 * x.numel())
+    del x, x1
+    n, c, r, lanes = N_G, C_LR, R_LR, LANES_G
+    lk = torch.randn((lanes, n, r), generator=gen, device=dev, dtype=dt)
+    gcol = torch.randn((lanes, r), generator=gen, device=dev, dtype=dt)
+    lw = torch.full((lanes, n), -math.log(n), device=dev, dtype=dt)
+    a = torch.randn((lanes, n, c), generator=gen, device=dev, dtype=dt)
+    bf = torch.randn((lanes, n, c), generator=gen, device=dev, dtype=dt)
+    q = torch.rand((lanes, n, r), generator=gen, device=dev, dtype=dt) / n
+    wm = torch.randn((lanes, c, r), generator=gen, device=dev, dtype=dt)
+    s_, t_, iq = (torch.randn((lanes, r), generator=gen, device=dev,
+                              dtype=dt) for _ in range(3))
+    plans = {"B5": lr.dykstra_plan(lanes, n, r, 8, sms).blocks,
+             "B6": lr.gram_plan(lanes, n, c, r, 8, sms).blocks}
+
+    def waves(key):
+        return (f"; {lanes} lanes × {plans[key]} blocks = "
+                f"{lanes * plans[key] / (lr.DYKSTRA_MIN_BLOCKS_PER_SM * sms):.1f}"
+                f"× the one-lane wave of {lr.DYKSTRA_MIN_BLOCKS_PER_SM} an SM")
+
+    line(f"B5 f64 lk{lanes}x{n}x{r} (Run G)",
+         lambda: ops.lr_dykstra_half_batched(lk, gcol, lw),
+         lambda: ops.lr_dykstra_half_batched(lk[:1], gcol[:1], lw[:1]),
+         lanes, lanes * (n * r + 2 * n + 2 * r) * 8, 10.0 * lanes * n * r,
+         waves("B5"))
+    line(f"B6 f64 N{n} c{c} r{r} x{lanes} (Run G)",
+         lambda: ops.lr_gram_chain_batched(a, bf, q, lw),
+         lambda: ops.lr_gram_chain_batched(a[:1], bf[:1], q[:1], lw[:1]),
+         lanes, lanes * (n * (2 * c + r + 1) + c * r + r * r + 2 * r) * 8,
+         lanes * (2.0 * n * r * (2 * c + 2) + 2.0 * c * r * r), waves("B6"))
+    line(f"B7 f64 N{n} c{c} r{r} x{lanes} (Run G)",
+         lambda: ops.lr_grad_combine_batched(a, wm, lw, s_, t_, iq),
+         lambda: ops.lr_grad_combine_batched(a[:1], wm[:1], lw[:1], s_[:1],
+                                             t_[:1], iq[:1]),
+         lanes, lanes * (n * (c + 1 + r) + c * r + 3 * r) * 8,
+         lanes * 1.0 * n * r * (2 * c + 6))
+    return rows
+
+
 KERNELS = (
     ("sinkhorn_row_update", "B1 row f32", f"B1 row f32 C{N_BIG}x{N_BIG}",
      "src/repro_torch/kernels/csrc/sinkhorn_step.cu",
@@ -1415,15 +1889,19 @@ def main() -> int:
         gen.manual_seed(SEED)
         errs = phase_kernels(torch, ops, sinkhorn_step, fgc_scan, gen)
         errs.update(phase_lowrank_kernels(torch, ops, lr_step, gen))
+        errs.update(phase_lane_kernels(torch, np, ops, sinkhorn_step,
+                                       fgc_scan, lr_step))
         launches, walls = phase_main_path(torch, np, ops, core, gen)
-        lr_launches, lr_walls = phase_lowrank_path(torch, np, ops, core)
-        for k, v in lr_launches.items():
-            launches[k] += v
-        walls.update(lr_walls)
+        for phase in (phase_lowrank_path, phase_batch_path):
+            more, more_walls = phase(torch, np, ops, core)
+            for k, v in more.items():
+                launches[k] += v
+            walls.update(more_walls)
         rows, library = phase_times(torch, ops, sinkhorn_step, fgc_scan,
                                     core, gen)
         rows.update(lowrank_times(torch, ops, lr_step, gen))
         lowrank_shape_times(torch, ops, gen)
+        batch_shape_times(torch, ops, lr_step, sinkhorn_step)
         say("  runs (host clock around synchronised work): " + ", ".join(
             f"{k} {v:.3f} s" for k, v in walls.items()))
         say("phase 5: kernels")

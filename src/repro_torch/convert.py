@@ -7,7 +7,9 @@ reference object's fields as plain Python values and numpy arrays (so this
 module needs nothing of JAX) and returns the port's object on ``device``.
 A solve begun in the reference can be resumed here: convert its
 ``MirrorCarry`` leaves with `mirror_carry` and hand the result to
-`repro_torch.core.gw_plan_segment`.
+`repro_torch.core.gw_plan_segment` (one problem's carry) or, as
+``resume_state``, to `repro_torch.core.entropic_gw_batch` (a batch's
+stacked carry, with `solve_controls` for its stacked controls).
 """
 from __future__ import annotations
 
@@ -58,11 +60,13 @@ def gw_config(fields: dict) -> GWConfig:
 
 def solve_controls(eps, tol, eps_init, anneal_decay, inner_loosen, lr_gamma,
                    device=None) -> SolveControls:
-    """`SolveControls` from the reference's six scalars."""
-    return SolveControls.make(float(eps), float(tol), float(eps_init),
-                              float(anneal_decay), float(inner_loosen),
-                              float(lr_gamma),
-                              device=resolve_device(device))
+    """`SolveControls` from the reference's six leaves: scalars, or (B,)
+    arrays of a batch's stacked controls."""
+    def f64(v):
+        return np.asarray(v, np.float64)
+    return SolveControls.make(f64(eps), f64(tol), f64(eps_init),
+                              f64(anneal_decay), f64(inner_loosen),
+                              f64(lr_gamma), device=resolve_device(device))
 
 
 def low_rank_geometry(a, b, device=None) -> LowRankGeometry:
@@ -91,16 +95,27 @@ def full_coupling(plan, f, g, device=None) -> FullCoupling:
                         as_tensor(g, dev))
 
 
-def mirror_carry(plan, f, g, t, stage, inner, err, done, trace,
-                 device=None) -> MirrorCarry:
-    """A `MirrorCarry` over a `FullCoupling` from the reference carry's
-    leaves (``state.plan``, ``state.f``, ``state.g``, then ``t``,
-    ``stage``, ``inner``, ``err``, ``done``, ``trace``)."""
+def mirror_carry(s0, s1, s2, t, stage, inner, err, done, trace,
+                 device=None, plan: str = "full") -> MirrorCarry:
+    """A `MirrorCarry` from the reference carry's leaves: its state's three
+    (``state.plan``, ``state.f``, ``state.g`` of a `FullCoupling`, or with
+    ``plan="lowrank"`` ``state.q``, ``state.r``, ``state.g`` of a
+    `LowRankCoupling`), then ``t``, ``stage``, ``inner``, ``err``, ``done``,
+    ``trace``.  A batch's stacked carry (``t`` a (B,) array) gives the
+    port's batch carry, one problem's carry one problem's."""
     dev = resolve_device(device)
-    return MirrorCarry(state=full_coupling(plan, f, g, dev), t=int(t),
-                       stage=int(stage), inner=int(inner),
-                       err=torch.as_tensor(float(err), dtype=torch.float64,
-                                           device=dev),
-                       done=bool(done),
-                       trace=torch.tensor(np.array(trace, np.float64),
-                                          device=dev))
+    make = {"full": full_coupling, "lowrank": low_rank_coupling}[plan]
+    state = make(s0, s1, s2, dev)
+    err = torch.tensor(np.array(err, np.float64), device=dev)
+    trace = torch.tensor(np.array(trace, np.float64), device=dev)
+    if np.ndim(t) == 0:
+        return MirrorCarry(state=state, t=int(t), stage=int(stage),
+                           inner=int(inner), err=err, done=bool(done),
+                           trace=trace)
+
+    def ints(v):
+        return tuple(int(x) for x in np.asarray(v))
+    return MirrorCarry(state=state, t=ints(t), stage=ints(stage),
+                       inner=ints(inner), err=err,
+                       done=tuple(bool(x) for x in np.asarray(done)),
+                       trace=trace)

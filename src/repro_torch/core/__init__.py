@@ -12,22 +12,27 @@ Public API of this slice:
   coupling  — FullCoupling (dense plan + log potentials), LowRankCoupling
               (factors Q, R, g) and its cold starts
   solver    — the convergence-controlled mirror-descent loop
-  gw        — entropic_gw (forward, dense or factored plan)
+  gw        — entropic_gw (forward, dense or factored plan) and
+              entropic_gw_batch (many problems as lanes: padded, per-lane
+              controls and stopping, segmented resume)
 """
 from repro_torch.core import (coupling, fgc, geometry, gradient, grids, gw,
                               sinkhorn, solver)
 from repro_torch.core.coupling import (Coupling, FullCoupling,
                                        LowRankCoupling, coupling_delta,
                                        full_init, lowrank_init)
-from repro_torch.core.geometry import (DenseGeometry, Geometry, GridGeometry,
-                                       LowRankGeometry, PointCloudGeometry,
-                                       as_geometry)
+from repro_torch.core.geometry import (DenseGeometry, DenseStack, Geometry,
+                                       GridGeometry, GridStack,
+                                       LowRankGeometry, LowRankStack,
+                                       PointCloudGeometry, PointCloudStack,
+                                       StackedGeometry, as_geometry)
 from repro_torch.core.gradient import GradientOperator, LowRankGradientOperator
 from repro_torch.core.grids import Grid1D, Grid2D, gw_product, gw_product_dense
-from repro_torch.core.gw import (GWConfig, GWResult, entropic_gw, gw_energy,
-                                 gw_init_state, gw_lr_step_fn,
-                                 gw_plan_segment, gw_plan_solve, gw_step_fn,
-                                 lowrank_descent)
+from repro_torch.core.gw import (GWConfig, GWResult, entropic_gw,
+                                 entropic_gw_batch, gw_energy, gw_init_state,
+                                 gw_lr_step_fn, gw_plan_segment,
+                                 gw_plan_solve, gw_step_fn, lowrank_descent,
+                                 stack_controls, stack_problems)
 from repro_torch.core.solver import (ConvergenceInfo, MirrorCarry,
                                      SolveControls, info_of, init_carry,
                                      mirror_descent, mirror_descent_segment,
@@ -38,13 +43,14 @@ __all__ = [
     "solver",
     "Coupling", "FullCoupling", "LowRankCoupling", "coupling_delta",
     "full_init", "lowrank_init",
-    "DenseGeometry", "Geometry", "GridGeometry", "LowRankGeometry",
-    "PointCloudGeometry", "as_geometry",
+    "DenseGeometry", "DenseStack", "Geometry", "GridGeometry", "GridStack",
+    "LowRankGeometry", "LowRankStack", "PointCloudGeometry",
+    "PointCloudStack", "StackedGeometry", "as_geometry",
     "GradientOperator", "LowRankGradientOperator",
     "Grid1D", "Grid2D", "gw_product", "gw_product_dense",
-    "GWConfig", "GWResult", "entropic_gw", "gw_energy", "gw_init_state",
-    "gw_lr_step_fn", "gw_plan_segment", "gw_plan_solve", "gw_step_fn",
-    "lowrank_descent",
+    "GWConfig", "GWResult", "entropic_gw", "entropic_gw_batch", "gw_energy",
+    "gw_init_state", "gw_lr_step_fn", "gw_plan_segment", "gw_plan_solve",
+    "gw_step_fn", "lowrank_descent", "stack_controls", "stack_problems",
     "ConvergenceInfo", "MirrorCarry", "SolveControls", "info_of",
     "init_carry", "mirror_descent", "mirror_descent_segment",
     "resolve_controls",

@@ -2,8 +2,13 @@
 
 Reference: ``repro/core/coupling.py`` (``Coupling``, ``FullCoupling``,
 ``LowRankCoupling``, ``coupling_delta``, ``full_init`` and ``lowrank_init``
-with its rank-2 and k-means seeds; zero-mass padding of a coupling,
-``pad_to``, belongs to the batching slice).
+with its rank-2 and k-means seeds, and the zero-mass padding ``pad_to`` /
+``slice_to``).
+
+Every coupling may carry a leading lane axis: a batch's state is one
+coupling whose tensors are lane-leading (plan (B, M, N), factors
+(B, M, r)), built by ``stack`` and taken apart by ``lane``; every method
+works along the trailing axes, so one expression serves one problem and B.
 
 ``FullCoupling`` is the dense plan Γ (M, N) plus the log-domain Sinkhorn
 potentials (f, g) warm-started across outer steps — the paper's setting.
@@ -23,7 +28,28 @@ from repro_torch.core.grids import Grid1D
 
 
 class Coupling:
-    """Interface: what the solver stack needs from a plan representation."""
+    """Interface: what the solver stack needs from a plan representation.
+    Its fields are tensors, lane-leading in a batch's state."""
+
+    @classmethod
+    def stack(cls, couplings) -> "Coupling":
+        """Equal-shaped couplings stacked lane-leading (one coupling as a
+        view with a lane axis of one)."""
+        return cls(*(geo.stack_lanes(ts) for ts in zip(
+            *(dataclasses.astuple(c) for c in couplings))))
+
+    def lane(self, b: int) -> "Coupling":
+        """Lane ``b`` of a lane-leading coupling."""
+        return type(self)(*(t[b] for t in dataclasses.astuple(self)))
+
+    def select(self, live, other: "Coupling") -> "Coupling":
+        """This coupling on the lanes where the (B,) mask ``live`` holds,
+        ``other`` elsewhere."""
+        def pick(n, o):
+            return torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)),
+                               n, o)
+        return type(self)(*(pick(n, o) for n, o in zip(
+            dataclasses.astuple(self), dataclasses.astuple(other))))
 
     def delta(self, other: "Coupling"):
         """L1-style movement between two iterates (the outer loop's delta_fn)."""
@@ -47,13 +73,27 @@ class FullCoupling(Coupling):
     g: torch.Tensor          # (N,) column potential
 
     def delta(self, other: "FullCoupling"):
-        return (self.plan - other.plan).abs().sum()
+        return (self.plan - other.plan).abs().sum(dim=(-2, -1))
+
+    def slice_to(self, m: int, n: int) -> "FullCoupling":
+        return FullCoupling(self.plan[..., :m, :n], self.f[..., :m],
+                            self.g[..., :n])
+
+    def pad_to(self, m: int, n: int) -> "FullCoupling":
+        """The inverse of ``slice_to``: this coupling in an (m, n) bucket.
+        Padded atoms carry zero plan mass and −inf potentials, their values
+        at the log-domain Sinkhorn fixed point."""
+        pm, pn = m - self.plan.shape[-2], n - self.plan.shape[-1]
+        pad = torch.nn.functional.pad
+        return FullCoupling(pad(self.plan, (0, pn, 0, pm)),
+                            pad(self.f, (0, pm), value=-torch.inf),
+                            pad(self.g, (0, pn), value=-torch.inf))
 
     def dense(self):
         return self.plan
 
     def marginals(self):
-        return self.plan.sum(dim=1), self.plan.sum(dim=0)
+        return self.plan.sum(dim=-1), self.plan.sum(dim=-2)
 
 
 @dataclasses.dataclass
@@ -74,20 +114,29 @@ class LowRankCoupling(Coupling):
         return self.g.shape[-1]
 
     def delta(self, other: "LowRankCoupling"):
-        return ((self.q - other.q).abs().sum()
-                + (self.r - other.r).abs().sum()
-                + (self.g - other.g).abs().sum())
+        return ((self.q - other.q).abs().sum(dim=(-2, -1))
+                + (self.r - other.r).abs().sum(dim=(-2, -1))
+                + (self.g - other.g).abs().sum(dim=-1))
 
     def slice_to(self, m: int, n: int) -> "LowRankCoupling":
-        return LowRankCoupling(self.q[:m], self.r[:n], self.g)
+        return LowRankCoupling(self.q[..., :m, :], self.r[..., :n, :],
+                               self.g)
+
+    def pad_to(self, m: int, n: int) -> "LowRankCoupling":
+        """The inverse of ``slice_to``: zero factor rows for the padded
+        (zero-mass) atoms."""
+        pad = torch.nn.functional.pad
+        return LowRankCoupling(pad(self.q, (0, 0, 0, m - self.q.shape[-2])),
+                               pad(self.r, (0, 0, 0, n - self.r.shape[-2])),
+                               self.g)
 
     def dense(self):
-        return (self.q / self.g[None, :]) @ self.r.T
+        return (self.q / self.g[..., None, :]) @ self.r.transpose(-1, -2)
 
     def marginals(self):
         iq = 1.0 / self.g
-        row = self.q @ (iq * self.r.sum(dim=0))
-        col = self.r @ (iq * self.q.sum(dim=0))
+        row = (self.q @ (iq * self.r.sum(dim=-2))[..., None])[..., 0]
+        col = (self.r @ (iq * self.q.sum(dim=-2))[..., None])[..., 0]
         return row, col
 
     def pad_rank(self, new_rank: int, mu, nu,
@@ -122,9 +171,10 @@ def coupling_delta(new: Coupling, old: Coupling):
 
 def full_init(mu, nu, gamma0=None, f0=None, g0=None) -> FullCoupling:
     """Cold start for the dense representation: product-coupling plan,
-    zero-mass-aware potentials."""
+    zero-mass-aware potentials (lane-leading measures give a lane-leading
+    coupling)."""
     f, g = sk.zero_mass_potentials(mu, nu)
-    return FullCoupling(mu[:, None] * nu[None, :] if gamma0 is None
+    return FullCoupling(mu[..., :, None] * nu[..., None, :] if gamma0 is None
                         else gamma0,
                         f if f0 is None else f0, g if g0 is None else g0)
 
@@ -137,16 +187,18 @@ def _rank2_factor(w, rank: int, lam):
 
     with a₁ ∝ arange·(w>0) and ĝ ∝ arange (both normalized).  F 1_r = w and
     Fᵀ 1 = g₀ exactly, every entry is ≥ 0 for λ ≤ min(min₊ w, 1/r)/2, and
-    zero-mass rows are exactly 0."""
-    n = w.shape[0]
+    zero-mass rows are exactly 0.  ``w`` (and ``lam``) may be lane-leading."""
+    n = w.shape[-1]
     ft, dev = w.dtype, w.device
+    lam = lam[..., None, None] if torch.is_tensor(lam) and lam.dim() else lam
     a1 = torch.arange(1, n + 1, dtype=ft, device=dev) * (w > 0)
-    a1 = a1 / a1.sum()
+    a1 = a1 / a1.sum(dim=-1, keepdim=True)
     g1 = torch.arange(1, rank + 1, dtype=ft, device=dev)
     g1 = g1 / g1.sum()
     g0 = torch.full((rank,), 1.0 / rank, dtype=ft, device=dev)
-    return (lam * a1[:, None] * g1[None, :]
-            + (w - lam * a1)[:, None] * (g0 - lam * g1)[None, :] / (1.0 - lam))
+    return (lam * a1[..., :, None] * g1[None, :]
+            + (w[..., :, None] - lam * a1[..., :, None])
+            * (g0 - lam * g1[None, :]) / (1.0 - lam))
 
 
 def _embedding(geom, ft, device):
@@ -212,8 +264,19 @@ def lowrank_init(mu, nu, rank: int, *, method: str = "rank2",
     and exactly zero on zero-mass atoms.  ``method="kmeans"``: each side's
     factor from mass-weighted k-means over its geometry's coordinate
     embedding (``geom_x``/``geom_y`` required); the inner weights average
-    the two sides' cluster masses."""
+    the two sides' cluster masses.  Lane-leading measures (with stacked
+    geometries for the k-means seeding, which loops over the lanes) give
+    a lane-leading coupling."""
     ft = mu.dtype
+    if method == "kmeans" and mu.dim() == 2:
+        if geom_x is None or geom_y is None:
+            raise ValueError(
+                "lowrank_init='kmeans' seeds from the geometries — pass "
+                "geom_x/geom_y (or use the solver entry points, which do)")
+        return LowRankCoupling.stack([
+            lowrank_init(mu[b], nu[b], rank, method=method,
+                         geom_x=geom_x.lane(b), geom_y=geom_y.lane(b))
+            for b in range(mu.shape[0])])
     if method == "kmeans":
         if geom_x is None or geom_y is None:
             raise ValueError(
@@ -227,12 +290,12 @@ def lowrank_init(mu, nu, rank: int, *, method: str = "rank2",
     if method != "rank2":
         raise ValueError(f"unknown lowrank_init method {method!r}")
     inf = torch.tensor(torch.inf, dtype=ft, device=mu.device)
-    min_mu = torch.where(mu > 0, mu, inf).min()
-    min_nu = torch.where(nu > 0, nu, inf).min()
+    min_mu = torch.where(mu > 0, mu, inf).amin(dim=-1)
+    min_nu = torch.where(nu > 0, nu, inf).amin(dim=-1)
     lam = torch.minimum(torch.minimum(min_mu, min_nu),
                         torch.tensor(1.0 / rank, dtype=ft,
                                      device=mu.device)) / 2.0
     return LowRankCoupling(_rank2_factor(mu, rank, lam),
                            _rank2_factor(nu, rank, lam),
-                           torch.full((rank,), 1.0 / rank, dtype=ft,
-                                      device=mu.device))
+                           torch.full(mu.shape[:-1] + (rank,), 1.0 / rank,
+                                      dtype=ft, device=mu.device))

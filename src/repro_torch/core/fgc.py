@@ -171,8 +171,8 @@ def _apply_D_dense(x2, p: int):
     return (lo + lo.T) @ x2
 
 
-def _apply_D_kernel(x2, p: int):
-    return kops.fgc_apply_dtilde(x2.contiguous(), p)
+def _apply_D_kernel(x2, p: int, lanes: int = 1):
+    return kops.fgc_apply_dtilde(x2.contiguous(), p, lanes)
 
 
 def _apply_D_two_pass(x2, p: int, backend: str):
@@ -222,10 +222,14 @@ def apply_LT(x, axis: int = 0, power: int = 1, backend: str = "cumsum"):
 
 
 def apply_abs_power(x, axis: int = 0, power: int = 1,
-                    backend: str = "cumsum"):
+                    backend: str = "cumsum", lanes: int = 1):
     """y = D̃ x with D̃[i,j] = |i-j|^power (diagonal: 0^0 := 1 for power=0).
 
     power=0 is the all-ones matrix J (paper §3.1 Kronecker expansion term).
+    ``lanes`` > 1 says that x's leading axis holds that many problems side
+    by side (``axis`` is then another axis): every backend sums each column
+    on its own, so lanes change no bit of the plain backends, and the
+    kernel backend launches once for all lanes with the plan of one.
     """
     if power < 0:
         raise ValueError("power must be >= 0")
@@ -233,6 +237,8 @@ def apply_abs_power(x, axis: int = 0, power: int = 1,
         return x.sum(dim=axis, keepdim=True) * torch.ones_like(x)
     fn = _backend(_D_BACKENDS, backend)
     x2, shape, axis = _to_front(x, axis)
+    if backend == "kernel":
+        return _from_front(_apply_D_kernel(x2, power, lanes), shape, axis)
     return _from_front(fn(x2, power), shape, axis)
 
 

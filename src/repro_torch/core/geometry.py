@@ -3,8 +3,8 @@ point-cloud and dense costs.
 
 Reference: ``repro/core/geometry.py`` (the ``Geometry`` base,
 ``GridGeometry``, ``LowRankGeometry``, ``PointCloudGeometry``,
-``DenseGeometry`` and ``as_geometry``; zero-mass padding, ``pad_to``,
-belongs to the batching slice and is not ported yet).
+``DenseGeometry`` and ``as_geometry``, with the batch's zero-mass padding:
+``pad_to``, ``paddable``, ``spec_unsized`` and ``batch_key``).
 
 What every GW solver needs from a metric space is "apply my (elementwise
 powered) distance matrix to a batch of vectors fast":
@@ -22,6 +22,17 @@ powered) distance matrix to a batch of vectors fast":
                         the geometry a factored-plan solve holds: one whose
                         apply on (N, r) factor batches builds no (N, N)
                         matrix (point clouds convert to their factors)
+  pad_to(n)             the same geometry embedded in n points; the extra
+                        points carry zero mass downstream (exact)
+  batch_key()           spec minus the size a batch may pad: problems with
+                        one batch_key a side can share a batch
+
+A batch holds each side as a `StackedGeometry` (`stack`): B geometries of
+one class, size and static params with their data lane-leading (h per
+lane for grids, factors (B, N, c), points (B, N, d), costs (B, N, N)),
+whose ``apply_dist`` takes a lane-leading (B, ...) x and contracts each
+lane with its own geometry, in one call for all lanes.  The reference
+stacks pytrees leaf-wise under ``vmap``; this is that stack held by hand.
 """
 from __future__ import annotations
 
@@ -29,19 +40,37 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.grids import Grid1D, Grid2D
+from repro_torch.core.grids import Grid1D, Grid2D, apply_dist_lanes
 
 
 def _matrix_apply(mat, x, axis):
-    """y = mat ·_axis x for a dense (N, N) matrix."""
+    """y_b = mat_b ·_axis x_b for (B, N, N) matrices and a lane-leading x."""
     axis = axis % x.dim()
-    y = torch.tensordot(mat, torch.movedim(x, axis, 0), dims=1)
-    return torch.movedim(y, 0, axis)
+    x2 = torch.movedim(x, axis, 1)
+    shape = x2.shape
+    y = torch.bmm(mat, x2.reshape(shape[0], shape[1], -1))
+    return torch.movedim(y.reshape(shape), 1, axis)
 
 
 def _ones_apply(x, axis):
     """D^{⊙0} = J (all-ones): matches fgc.apply_abs_power's 0^0 := 1."""
     return x.sum(dim=axis, keepdim=True) * torch.ones_like(x)
+
+
+def _khatri_rao_power(m, p: int):
+    """Row-wise Kronecker p-th power of each lane of a (B, N, c) factor:
+    out[b, i] = m[b, i] ⊗ ... ⊗ m[b, i] (p times), so (A Bᵀ)^{⊙p} =
+    Ap Bpᵀ, a rank-c^p factorization."""
+    lanes, n = m.shape[:2]
+    out = m
+    for _ in range(p - 1):
+        out = (out[:, :, :, None] * m[:, :, None, :]).reshape(lanes, n, -1)
+    return out
+
+
+def _pad_rows(t, n: int):
+    """``t`` with zero rows appended up to ``n`` rows."""
+    return torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[0]))
 
 
 def _powered(d, power_mult: int):
@@ -54,6 +83,9 @@ def _powered(d, power_mult: int):
 class Geometry:
     """Interface base — see the module docstring."""
 
+    #: zero-mass padding to a larger size is exact for this geometry
+    paddable: bool = True
+
     @property
     def size(self) -> int:
         raise NotImplementedError
@@ -62,12 +94,24 @@ class Geometry:
     def spec(self) -> tuple:
         raise NotImplementedError
 
+    def spec_unsized(self) -> tuple:
+        raise NotImplementedError
+
+    def batch_key(self) -> tuple:
+        """`spec` minus the size a batch may pad: problems sharing a
+        batch_key a side can share a batch."""
+        return self.spec if not self.paddable else self.spec_unsized()
+
+    def pad_to(self, n: int) -> "Geometry":
+        """This geometry embedded in ``n`` points; the extra points carry
+        zero mass downstream, which the solvers treat exactly."""
+        raise NotImplementedError
+
     def apply_dist(self, x, axis: int = 0, power_mult: int = 1):
-        """Default: the dense fallback through dist_matrix."""
-        if power_mult == 0:
-            return _ones_apply(x, axis % x.dim())
-        return _matrix_apply(self.dist_matrix(power_mult, x.dtype, x.device),
-                             x, axis)
+        """The apply of this geometry's stack of one (`stack`): each
+        geometry's apply has one home, its stacked form's."""
+        return stack([self]).apply_dist(x[None], axis % x.dim() + 1,
+                                        power_mult)[0]
 
     def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
                     device=None):
@@ -99,8 +143,8 @@ GRID_BACKENDS = ("scan", "cumsum", "blocked", "kernel", "dense")
 
 def as_geometry(obj, backend: str = "cumsum") -> Geometry:
     """Grid1D/Grid2D become GridGeometry with the given FGC backend;
-    Geometry instances pass through unchanged."""
-    if isinstance(obj, Geometry):
+    Geometry (and StackedGeometry) instances pass through unchanged."""
+    if isinstance(obj, (Geometry, StackedGeometry)):
         return obj
     if isinstance(obj, (Grid1D, Grid2D)):
         if backend not in GRID_BACKENDS:
@@ -130,25 +174,27 @@ class GridGeometry(Geometry):
         g = self.grid
         return ("grid", type(g).__name__, g.n, g.k, self.backend)
 
-    def apply_dist(self, x, axis: int = 0, power_mult: int = 1):
-        if self.backend == "dense":
-            return Geometry.apply_dist(self, x, axis, power_mult)
-        return self.grid.apply_dist(x, axis=axis, power_mult=power_mult,
-                                    backend=self.backend)
+    def spec_unsized(self) -> tuple:
+        g = self.grid
+        return ("grid", type(g).__name__, g.k, self.backend)
+
+    @property
+    def paddable(self) -> bool:
+        # Grid2D's Kronecker unfolding owns the grid axis: zero-padding the
+        # flattened axis is not expressible, so 2D batches are equal-sized
+        return isinstance(self.grid, Grid1D)
 
     def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
                     device=None):
         return self.grid.dist_matrix(power_mult, dtype=dtype, device=device)
 
-
-def _khatri_rao_power(m, p: int):
-    """Row-wise Kronecker p-th power: out[i] = m[i] ⊗ ... ⊗ m[i] (p times),
-    so (A Bᵀ)^{⊙p} = Ap Bpᵀ, a rank-r^p factorization."""
-    n = m.shape[0]
-    out = m
-    for _ in range(p - 1):
-        out = (out[:, :, None] * m[:, None, :]).reshape(n, -1)
-    return out
+    def pad_to(self, n: int) -> "GridGeometry":
+        g = self.grid
+        if n == g.size:
+            return self
+        if not isinstance(g, Grid1D):
+            raise ValueError("Grid2D geometries cannot be padded")
+        return GridGeometry(Grid1D(n, g.h, g.k), self.backend)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,18 +229,13 @@ class LowRankGeometry(Geometry):
     def spec(self) -> tuple:
         return ("lowrank", self.size, self.rank)
 
-    def apply_dist(self, x, axis: int = 0, power_mult: int = 1):
-        if power_mult == 0:
-            return _ones_apply(x, axis % x.dim())
-        # promote instead of casting the factors to x's dtype: f64 factors
-        # under an f32 operand keep their precision (the reference's rule)
-        dt = torch.promote_types(self.a.dtype, x.dtype)
-        ap = _khatri_rao_power(self.a, power_mult).to(dt)
-        bp = _khatri_rao_power(self.b, power_mult).to(dt)
-        axis = axis % x.dim()
-        x2 = torch.movedim(x, axis, 0).to(dt)
-        y2 = torch.tensordot(ap, torch.tensordot(bp.T, x2, dims=1), dims=1)
-        return torch.movedim(y2, 0, axis)
+    def spec_unsized(self) -> tuple:
+        return ("lowrank", self.rank)
+
+    def pad_to(self, n: int) -> "LowRankGeometry":
+        if n == self.size:
+            return self
+        return LowRankGeometry(_pad_rows(self.a, n), _pad_rows(self.b, n))
 
     def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
                     device=None):
@@ -229,6 +270,14 @@ class PointCloudGeometry(Geometry):
     @property
     def spec(self) -> tuple:
         return ("pointcloud", self.size, self.dim, self.metric)
+
+    def spec_unsized(self) -> tuple:
+        return ("pointcloud", self.dim, self.metric)
+
+    def pad_to(self, n: int) -> "PointCloudGeometry":
+        if n == self.size:
+            return self
+        return PointCloudGeometry(_pad_rows(self.points, n), self.metric)
 
     def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
                     device=None):
@@ -292,7 +341,197 @@ class DenseGeometry(Geometry):
     def spec(self) -> tuple:
         return ("dense", self.size)
 
+    def spec_unsized(self) -> tuple:
+        return ("dense",)
+
+    def pad_to(self, n: int) -> "DenseGeometry":
+        if n == self.size:
+            return self
+        p = n - self.size
+        return DenseGeometry(torch.nn.functional.pad(self.cost, (0, p, 0, p)))
+
     def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
                     device=None):
         d = self.cost.to(dtype=dtype, device=device)
         return _powered(d, power_mult)
+
+
+# ---------------------------------------------------------------------------
+# stacked (lane-leading) geometries: what a batch solve holds
+# ---------------------------------------------------------------------------
+
+class StackedGeometry:
+    """B geometries of one class, one size and one set of static params,
+    their data lane-leading.  ``apply_dist(x, axis, power_mult)`` takes a
+    lane-leading (B, ...) x, ``axis`` ≥ 1, and contracts lane b with
+    geometry b; ``dist_matrix`` is (B, N, N); ``lane(b)`` is geometry b
+    alone."""
+
+    @property
+    def lanes(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def cost_rank(self):
+        return None
+
+    def lane(self, b: int) -> Geometry:
+        raise NotImplementedError
+
+    def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
+                    device=None):
+        return torch.stack([self.lane(b).dist_matrix(power_mult, dtype,
+                                                     device)
+                            for b in range(self.lanes)])
+
+    def apply_dist(self, x, axis: int = 1, power_mult: int = 1):
+        """Default: the dense fallback through dist_matrix."""
+        if power_mult == 0:
+            return _ones_apply(x, axis % x.dim())
+        return _matrix_apply(
+            self.dist_matrix(power_mult, x.dtype, x.device), x, axis)
+
+    def materialize(self) -> "StackedGeometry":
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class GridStack(StackedGeometry):
+    """Uniform grids of one class, n and k, one spacing h a lane: one FGC
+    apply serves every lane (`grids.apply_dist_lanes`)."""
+
+    grids: tuple
+    backend: str = "cumsum"
+
+    @property
+    def lanes(self) -> int:
+        return len(self.grids)
+
+    @property
+    def size(self) -> int:
+        return self.grids[0].size
+
+    def lane(self, b: int) -> GridGeometry:
+        return GridGeometry(self.grids[b], self.backend)
+
+    def apply_dist(self, x, axis: int = 1, power_mult: int = 1):
+        if self.backend == "dense":
+            return StackedGeometry.apply_dist(self, x, axis, power_mult)
+        return apply_dist_lanes(self.grids, x, axis, power_mult,
+                                self.backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowRankStack(StackedGeometry):
+    """Factored costs D_b = A_b B_bᵀ, factors (B, N, c)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+
+    @property
+    def lanes(self) -> int:
+        return self.a.shape[0]
+
+    @property
+    def size(self) -> int:
+        return self.a.shape[1]
+
+    @property
+    def cost_rank(self):
+        return self.a.shape[2]
+
+    def lane(self, b: int) -> LowRankGeometry:
+        return LowRankGeometry(self.a[b], self.b[b])
+
+    def apply_dist(self, x, axis: int = 1, power_mult: int = 1):
+        if power_mult == 0:
+            return _ones_apply(x, axis % x.dim())
+        # promote instead of casting the factors to x's dtype: f64 factors
+        # under an f32 operand keep their precision (the reference's rule)
+        dt = torch.promote_types(self.a.dtype, x.dtype)
+        ap = _khatri_rao_power(self.a, power_mult).to(dt)
+        bp = _khatri_rao_power(self.b, power_mult).to(dt)
+        axis = axis % x.dim()
+        x2 = torch.movedim(x, axis, 1).to(dt)
+        shape = x2.shape
+        x3 = x2.reshape(shape[0], shape[1], -1)
+        y = ap @ (bp.transpose(1, 2) @ x3)
+        return torch.movedim(y.reshape(shape), 1, axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointCloudStack(StackedGeometry):
+    """Point clouds (B, N, d) of one metric; the solvers hold their
+    materialized costs."""
+
+    points: torch.Tensor
+    metric: str = "sqeuclidean"
+
+    @property
+    def lanes(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def size(self) -> int:
+        return self.points.shape[1]
+
+    def lane(self, b: int) -> PointCloudGeometry:
+        return PointCloudGeometry(self.points[b], self.metric)
+
+    def materialize(self) -> "DenseStack":
+        return DenseStack(self.dist_matrix(dtype=self.points.dtype,
+                                           device=self.points.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStack(StackedGeometry):
+    """Explicit costs (B, N, N)."""
+
+    cost: torch.Tensor
+
+    @property
+    def lanes(self) -> int:
+        return self.cost.shape[0]
+
+    @property
+    def size(self) -> int:
+        return self.cost.shape[1]
+
+    def lane(self, b: int) -> DenseGeometry:
+        return DenseGeometry(self.cost[b])
+
+    def dist_matrix(self, power_mult: int = 1, dtype=torch.float64,
+                    device=None):
+        return _powered(self.cost.to(dtype=dtype, device=device),
+                        power_mult)
+
+
+def stack_lanes(ts):
+    """Tensors of one shape stacked lane-leading; one tensor becomes a view
+    with a lane axis of one, no copy (a 10⁶-point factor is 40 MB)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def stack(geoms) -> StackedGeometry:
+    """Equal-sized geometries of one batch_key, stacked lane-leading (their
+    data keeps its own dtype)."""
+    g0 = geoms[0]
+    if len({g.batch_key() for g in geoms}) != 1 or \
+            len({g.size for g in geoms}) != 1:
+        raise ValueError("stack takes equal-sized geometries of one "
+                         "batch_key")
+    if isinstance(g0, GridGeometry):
+        return GridStack(tuple(g.grid for g in geoms), g0.backend)
+    if isinstance(g0, LowRankGeometry):
+        return LowRankStack(stack_lanes([g.a for g in geoms]),
+                            stack_lanes([g.b for g in geoms]))
+    if isinstance(g0, PointCloudGeometry):
+        return PointCloudStack(stack_lanes([g.points for g in geoms]),
+                               g0.metric)
+    if isinstance(g0, DenseGeometry):
+        return DenseStack(stack_lanes([g.cost for g in geoms]))
+    raise TypeError(f"cannot stack {type(g0).__name__}")

@@ -44,8 +44,15 @@ class Grid1D:
                    backend: str = "cumsum"):
         """y = D^{⊙power_mult} ·_axis x  in O(k² n · batch)."""
         p = self.k * power_mult
-        y = fgc.apply_abs_power(x, axis=axis, power=p, backend=backend)
-        return (self.h ** p) * y
+        return (self.h ** p) * self.apply_unscaled(x, axis, power_mult,
+                                                   backend)
+
+    def apply_unscaled(self, x, axis: int = 0, power_mult: int = 1,
+                       backend: str = "cumsum", lanes: int = 1):
+        """D̃^{⊙power_mult} ·_axis x, the apply without its h^p; ``lanes``
+        problems may sit side by side on x's leading axis."""
+        return fgc.apply_abs_power(x, axis=axis, power=self.k * power_mult,
+                                   backend=backend, lanes=lanes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +88,14 @@ class Grid2D:
           D̂^{⊙P} = Σ_r C(P,r) D1^{⊙r} ⊗ D1^{⊙(P-r)}      (P = k·power_mult)
         """
         p = self.k * power_mult
+        return (self.h ** p) * self.apply_unscaled(x, axis, power_mult,
+                                                   backend)
+
+    def apply_unscaled(self, x, axis: int = 0, power_mult: int = 1,
+                       backend: str = "cumsum", lanes: int = 1):
+        """The apply without its h^p; ``lanes`` problems may sit side by
+        side on x's leading axis."""
+        p = self.k * power_mult
         n = self.n
         axis = axis % x.dim()
         shape = tuple(x.shape)
@@ -92,14 +107,32 @@ class Grid2D:
         for r in range(p + 1):
             coeff = math.comb(p, r)
             term = fgc.apply_abs_power(unfolded, axis=ax_a, power=r,
-                                       backend=backend)
+                                       backend=backend, lanes=lanes)
             term = fgc.apply_abs_power(term, axis=ax_b, power=p - r,
-                                       backend=backend)
+                                       backend=backend, lanes=lanes)
             out = out + coeff * term
-        return (self.h ** p) * out.reshape(shape)
+        return out.reshape(shape)
 
 
 Grid = Grid1D | Grid2D
+
+
+def apply_dist_lanes(grids, x, axis: int, power_mult: int = 1,
+                     backend: str = "cumsum"):
+    """y = D_b^{⊙power_mult} ·_axis x_b for the lanes b of a lane-leading x
+    (``axis`` ≥ 1), one grid a lane; the grids share their class, n and k,
+    and may differ in h.  One apply serves every lane (the kernel backend
+    launches once, each lane with its own plan); h_b^p is taken on the host
+    as a Python float, as `Grid1D.apply_dist` takes it, and only then
+    becomes a (B,) tensor of x's dtype."""
+    g0 = grids[0]
+    if axis % x.dim() == 0:
+        raise ValueError("axis 0 of a lane-leading x is the lane axis")
+    p = g0.k * power_mult
+    y = g0.apply_unscaled(x, axis, power_mult, backend, lanes=len(grids))
+    scale = torch.tensor([g.h ** p for g in grids], dtype=y.dtype,
+                         device=y.device)
+    return scale.reshape((-1,) + (1,) * (y.dim() - 1)) * y
 
 
 def gw_product(grid_x: Grid, grid_y: Grid, gamma, backend: str = "cumsum"):

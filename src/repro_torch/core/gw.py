@@ -3,9 +3,11 @@ fast gradient (paper §3) — forward, dense or factored plan.
 
 Reference: ``repro/core/gw.py`` (``GWConfig``, ``GWResult``, ``gw_energy``,
 ``gw_step_fn``, ``gw_lr_step_fn``, ``gw_init_state``, ``gw_plan_solve``,
-``gw_plan_segment``, ``lowrank_descent`` and ``entropic_gw`` with
-``plan="full"`` and ``plan="lowrank"``; batching, FGW's factored step and
-reverse-mode differentiation belong to later slices).
+``gw_plan_segment``, ``lowrank_descent``, ``entropic_gw`` with
+``plan="full"`` and ``plan="lowrank"``, and the batch surface
+``entropic_gw_batch`` with ``stack_problems``, ``stack_controls`` and its
+segmented resume; FGW feature costs and reverse-mode differentiation
+belong to later slices).
 
 Each outer iteration with the dense plan (``plan="full"``):
     Π   = ∇E(Γ) = C1 − 4·D_X Γ D_Y          (FGC: O(k²MN); dense: O(M²N+MN²))
@@ -15,7 +17,16 @@ the factored plan (``plan="lowrank"``) the state is P = Q diag(1/g) Rᵀ
 (Scetbon et al. 2021): the gradients come from the factors' Gram chain and
 a Dykstra projection replaces Sinkhorn, so no (M, N) array exists and
 point clouds run as their factored costs.  Both are driven by
-`repro_torch.core.solver.mirror_descent`.
+`repro_torch.core.solver.mirror_descent_segment`.
+
+`entropic_gw_batch` solves many problems as one set of lane-leading
+tensors: each side's geometries are padded to one size with zero-mass
+points (exact: padded potentials are −inf, padded factor rows 0) and
+stacked (`repro_torch.core.geometry.stack`), every kernel launches once
+for all lanes, and each lane carries its own controls, stops on its own
+counts and resumes bit for bit from ``resume_state``.  `entropic_gw` is a
+batch of one on the same code path; only the rank restarts of
+``plan_rank="auto"`` (`lowrank_descent`) run one problem at a time.
 
 Entry points run on the CUDA device unless the caller passes ``device``
 (e.g. ``device="cpu"`` for the plain PyTorch path); with no card and no
@@ -29,15 +40,19 @@ import dataclasses
 import numpy as np
 import torch
 
+import functools
+from typing import Sequence
+
 from repro_torch.core import sinkhorn as sk
 from repro_torch.core.coupling import (Coupling, FullCoupling,
                                        LowRankCoupling, coupling_delta,
                                        full_init, lowrank_init)
-from repro_torch.core.geometry import as_geometry
+from repro_torch.core.geometry import (Geometry, as_geometry, stack,
+                                       stack_lanes)
 from repro_torch.core.gradient import GradientOperator, LowRankGradientOperator
 from repro_torch.core.solver import (ConvergenceInfo, MirrorCarry,
-                                     SolveControls, mirror_descent,
-                                     mirror_descent_segment,
+                                     SolveControls, info_of, init_carry,
+                                     mirror_descent, mirror_descent_segment,
                                      resolve_controls)
 
 
@@ -158,8 +173,19 @@ def gw_energy(grid_x, grid_y, gamma, backend: str = "cumsum",
         gamma, dx2_mu, dy2_nu)
 
 
+def _on_lanes(op, *ts):
+    """An operator built on one problem's geometries, and its tensors, as a
+    batch of one (the step closures run on lanes); a batch's pass
+    through."""
+    if op.lanes is None:
+        ts = tuple(t[None] for t in ts)
+    return (op.on_lanes(),) + ts
+
+
 def gw_step_fn(op: GradientOperator, c1, mu, nu, cfg: GWConfig):
-    """The full-plan mirror-descent step closure (state: `FullCoupling`)."""
+    """The full-plan mirror-descent step closure over lanes (state: a
+    lane-leading `FullCoupling`; ε and the inner tolerance (B,))."""
+    op, c1, mu, nu = _on_lanes(op, c1, mu, nu)
 
     def step(state, eps, inner_tol):
         gamma, f, g, err, used = sk.solve_adaptive(
@@ -178,7 +204,9 @@ def gw_lr_step_fn(op: LowRankGradientOperator, dx2, dy2, mu, nu,
     gradients at the current factors, the KL-prox kernels and a Dykstra
     projection (`sinkhorn.lr_mirror_step`).  Dykstra sweeps take the
     Sinkhorn iterations' caps (``sinkhorn_iters``/``sinkhorn_chunk``) and
-    their place in `ConvergenceInfo`; err is the L1 row-marginal gap."""
+    their place in `ConvergenceInfo`; err is the L1 row-marginal gap.  As
+    `gw_step_fn`, it runs on lanes."""
+    op, dx2, dy2, mu, nu = _on_lanes(op, dx2, dy2, mu, nu)
 
     def step(state, eps, inner_tol):
         gq, gr, gg = op.grads(state, dx2, dy2, cfg.g_floor)
@@ -216,12 +244,14 @@ def gw_init_state(mu, nu, gamma0=None, cfg: GWConfig | None = None,
 def gw_plan_solve(op: GradientOperator, c1, mu, nu, cfg: GWConfig,
                   controls: SolveControls | None = None, state0=None):
     """Convergence-controlled full-plan GW mirror descent on a prepared
-    operator.  Returns ``(FullCoupling, ConvergenceInfo)``."""
+    operator (one problem's, or a batch's with lane-leading tensors).
+    Returns ``(FullCoupling, ConvergenceInfo)``."""
     ctl = resolve_controls(cfg, controls, mu.device)
     if state0 is None:
         state0 = full_init(mu, nu)
     return mirror_descent(gw_step_fn(op, c1, mu, nu, cfg), state0,
-                          coupling_delta, ctl, cfg.outer_iters)
+                          coupling_delta, ctl, cfg.outer_iters,
+                          op.lanes)
 
 
 def gw_plan_segment(op: GradientOperator, c1, mu, nu, cfg: GWConfig,
@@ -251,23 +281,28 @@ def entropic_gw(grid_x, grid_y, mu, nu, cfg: GWConfig = GWConfig(),
     value is the factored energy at the plan's own marginals;
     ``plan_rank="auto"`` grows the rank by restarts (`lowrank_descent`).
     ``gamma0`` is a dense-plan warm start and is rejected there.
+
+    The solve is `entropic_gw_batch`'s on a batch of one, unpadded.
     """
     dev = resolve_device(device)
-    mu, nu = as_tensor(mu, dev), as_tensor(nu, dev)
-    ctl = resolve_controls(cfg, controls, dev)
     if cfg.plan == "lowrank":
         if gamma0 is not None:
             raise ValueError(
                 "gamma0 is a dense-plan warm start; the factored path "
                 "starts from its own feasible factors")
-        return _entropic_gw_lowrank(grid_x, grid_y, mu, nu, cfg, ctl)
-    op = GradientOperator(as_geometry(grid_x, cfg.backend),
-                          as_geometry(grid_y, cfg.backend), cfg.backend)
-    c1, dx2_mu, dy2_nu = op.constant_term(mu, nu)
-    state0 = None if gamma0 is None else full_init(mu, nu,
-                                                   as_tensor(gamma0, dev))
-    coup, info = gw_plan_solve(op, c1, mu, nu, cfg, ctl, state0)
-    return _result_of(coup, op.energy(coup.plan, dx2_mu, dy2_nu), info)
+        if isinstance(cfg.plan_rank, str):
+            return _entropic_gw_lowrank_auto(
+                grid_x, grid_y, as_tensor(mu, dev), as_tensor(nu, dev), cfg,
+                resolve_controls(cfg, controls, dev))
+    ops, gxs, gys = stack_problems(
+        [(grid_x, grid_y, mu, nu)], cfg,
+        controls=None if controls is None else [controls], device=dev)
+    state0 = None if gamma0 is None else full_init(
+        ops[2], ops[3], as_tensor(gamma0, dev)[None].to(ops[2].dtype))
+    carry, values = _segment_stacked(*ops, _init_stacked(*ops[:4], cfg,
+                                                         state0), cfg)
+    return _unpack_results(info_of(carry), carry.state, values, gxs, gys,
+                           1)[0]
 
 
 _AUTO_RANK_START = 8        # plan_rank="auto" first attempt
@@ -322,11 +357,11 @@ def lowrank_descent(step, mu, nu, cfg: GWConfig, ctl: SolveControls,
                                      inner_iters=inner)
 
 
-def _entropic_gw_lowrank(grid_x, grid_y, mu, nu, cfg: GWConfig,
-                         ctl: SolveControls) -> GWResult:
-    """Factored-plan entropic GW, static rank or ``"auto"``: the factors
-    are seeded from the converted geometries (the operator's factored
-    pair), and the value is the operator's energy at the final factors."""
+def _entropic_gw_lowrank_auto(grid_x, grid_y, mu, nu, cfg: GWConfig,
+                              ctl: SolveControls) -> GWResult:
+    """Factored-plan entropic GW at ``plan_rank="auto"``: the factors are
+    seeded from the converted geometries (the operator's factored pair),
+    and the value is the operator's energy at the final factors."""
     op = LowRankGradientOperator(grid_x, grid_y, cfg.backend, cfg.cost_rank,
                                  cfg.lowrank_backend)
     dx2, dy2 = op.constant_term(mu, nu)
@@ -334,3 +369,191 @@ def _entropic_gw_lowrank(grid_x, grid_y, mu, nu, cfg: GWConfig,
     coup, info = lowrank_descent(step, mu, nu, cfg, ctl, op.geom_x,
                                  op.geom_y)
     return _result_of(coup, op.energy(coup, cfg.g_floor), info)
+
+
+# ---------------------------------------------------------------------------
+# batched solving: many problems as one set of lane-leading tensors
+# ---------------------------------------------------------------------------
+
+def _init_stacked(geoms_x, geoms_y, mus, nus, cfg: GWConfig,
+                  state0: Coupling | None = None) -> MirrorCarry:
+    """Fresh carries for a batch: the cold coupling start of every lane
+    (product plan or rank-r factors, per ``cfg.plan``; the stacked
+    geometries feed the k-means seeding), or the lane-leading ``state0``,
+    with traces sized to the cfg's outer cap."""
+    if state0 is None:
+        state0 = gw_init_state(mus, nus, cfg=cfg, geom_x=geoms_x,
+                               geom_y=geoms_y)
+    return init_carry(state0, cfg.outer_iters, mus.device, mus.shape[0])
+
+
+def _init_lane(geom_x, geom_y, mu, nu, cfg: GWConfig) -> MirrorCarry:
+    """One problem's fresh carry (geometries as `stack_problems` converts
+    them), the carry a freed slot of a batch takes."""
+    return init_carry(gw_init_state(mu, nu, cfg=cfg, geom_x=geom_x,
+                                    geom_y=geom_y), cfg.outer_iters,
+                      mu.device)
+
+
+def _segment_stacked(geoms_x, geoms_y, mus, nus, controls: SolveControls,
+                     carry: MirrorCarry, cfg: GWConfig,
+                     segment: int | None = None):
+    """Advance every lane of a batch's carry by ≤ ``segment`` outer steps
+    and return (carry, values): ``values`` is each lane's GW energy at its
+    current plan.  One-shot and segmented solves both run this body, and
+    the constant term is recomputed on each call from (geometry, μ, ν), so
+    a solve cut into segments equals an uninterrupted one bit for bit."""
+    if cfg.plan == "lowrank":
+        op = LowRankGradientOperator(geoms_x, geoms_y, cfg.backend,
+                                     cfg.cost_rank, cfg.lowrank_backend)
+        dx2, dy2 = op.constant_term(mus, nus)
+        step = gw_lr_step_fn(op, dx2, dy2, mus, nus, cfg, controls.lr_gamma)
+        carry = mirror_descent_segment(step, coupling_delta, controls,
+                                       cfg.outer_iters, carry, segment)
+        return carry, op.energy(carry.state, cfg.g_floor)
+    op = GradientOperator(geoms_x, geoms_y, cfg.backend)
+    c1, dx2_mu, dy2_nu = op.constant_term(mus, nus)
+    carry = gw_plan_segment(op, c1, mus, nus, cfg, controls, carry, segment)
+    return carry, op.energy(carry.state.plan, dx2_mu, dy2_nu)
+
+
+def _pad_to(vec, size: int):
+    return vec if size == vec.shape[0] else \
+        torch.nn.functional.pad(vec, (0, size - vec.shape[0]))
+
+
+def _stack_side(geoms: Sequence[Geometry], measures, pad: int | None):
+    """Validate one side of a batch, pad every geometry to the bucket size,
+    and stack (geometries lane-leading, measures zero-padded)."""
+    for g, m in zip(geoms, measures):
+        if m.shape[0] != g.size:
+            raise ValueError(
+                f"measure length {m.shape[0]} != geometry size {g.size} — "
+                "bucket padding would silently absorb the mismatch")
+    keys = {g.batch_key() for g in geoms}
+    if len(keys) != 1:
+        raise ValueError(
+            "batch requires compatible geometries per side (one class and "
+            f"one set of static params); got keys {sorted(map(str, keys))}")
+    sizes = [g.size for g in geoms]
+    if not geoms[0].paddable:
+        if len(set(sizes)) != 1 or (pad is not None and pad != sizes[0]):
+            raise ValueError(
+                f"{type(geoms[0]).__name__} batches must be equal-sized")
+        n = sizes[0]
+    else:
+        n = max(sizes) if pad is None else pad
+        if n < max(sizes):
+            raise ValueError(f"pad_to={pad} < largest problem {max(sizes)}")
+    # each geometry keeps its data's dtype: forcing the measures' dtype
+    # would downcast f64 geometry data under f32 measures
+    dt = functools.reduce(torch.promote_types, [m.dtype for m in measures])
+    return (stack([g.pad_to(n) for g in geoms]),
+            stack_lanes([_pad_to(m.to(dt), n) for m in measures]))
+
+
+def stack_controls(controls, cfg: GWConfig, n: int,
+                   device=None) -> SolveControls:
+    """Per-lane SolveControls for a batch of ``n`` problems, (n,) float64
+    tensors on ``device``.  ``controls`` may be None (every lane gets the
+    cfg's knobs), one SolveControls (shared), or a sequence of exactly
+    ``n`` per-problem SolveControls — a short list is an error, not a
+    silent replication."""
+    if controls is None:
+        ctls = [SolveControls.from_config(cfg, device)] * n
+    elif isinstance(controls, SolveControls):
+        ctls = [controls] * n
+    else:
+        ctls = list(controls)
+        if len(ctls) != n:
+            raise ValueError(
+                f"{len(ctls)} controls for {n} problems — per-problem "
+                "controls must match the (padded) problem list exactly")
+    return SolveControls(*(
+        torch.stack([torch.as_tensor(v, dtype=torch.float64,
+                                     device=device).reshape(())
+                     for v in vals])
+        for vals in zip(*(dataclasses.astuple(c) for c in ctls))))
+
+
+def _unpack_results(info: ConvergenceInfo, coupling: Coupling, values,
+                    gxs, gys, k: int) -> list[GWResult]:
+    """Slice per-lane results back to their true (unpadded) sizes."""
+    return [_result_of(coupling.lane(i).slice_to(gxs[i].size, gys[i].size),
+                       values[i], info.lane(i)) for i in range(k)]
+
+
+def stack_problems(problems: Sequence[tuple], cfg: GWConfig,
+                   pad_to: tuple[int, int] | None = None, controls=None,
+                   device=None):
+    """Pad + stack a problem list into the batch's operands
+    ``(geoms_x, geoms_y, mus, nus, controls)``, plus the adapted
+    per-problem geometries (for slicing results back).  Measures are moved
+    to ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    gxs = [as_geometry(p[0], cfg.backend) for p in problems]
+    gys = [as_geometry(p[1], cfg.backend) for p in problems]
+    if cfg.plan == "lowrank":
+        _static_rank(cfg)   # "auto" cannot ride a fixed-shape lane
+        # convert BEFORE padding: a padded point cloud would factor its
+        # origin-sitting padding atoms into nonzero rows, while padding the
+        # factors appends exact zero rows
+        gxs = [g.for_factored_plan(cfg.cost_rank) for g in gxs]
+        gys = [g.for_factored_plan(cfg.cost_rank) for g in gys]
+    geoms_x, mus = _stack_side(gxs, [as_tensor(p[2], dev) for p in problems],
+                               pad_to and pad_to[0])
+    geoms_y, nus = _stack_side(gys, [as_tensor(p[3], dev) for p in problems],
+                               pad_to and pad_to[1])
+    ctls = stack_controls(controls, cfg, len(problems), dev)
+    return (geoms_x, geoms_y, mus, nus, ctls), gxs, gys
+
+
+def entropic_gw_batch(problems: Sequence[tuple], cfg: GWConfig = GWConfig(),
+                      pad_to: tuple[int, int] | None = None,
+                      num_results: int | None = None, controls=None,
+                      resume_state: MirrorCarry | None = None,
+                      max_outer_segment: int | None = None, features=None,
+                      device=None):
+    """Solve a batch of GW problems ``[(geom_x, geom_y, mu, nu), ...]`` as
+    one set of lane-leading tensors.  Geometries may be raw Grids (adapted
+    with ``cfg.backend``) or any Geometry — low-rank, point-cloud, dense;
+    their tensors must lie on the solve's device (``device``, default the
+    card).
+
+    Ragged sizes are padded to the max (or to ``pad_to=(M, N)``) with
+    zero-mass points, which the solvers treat exactly, so each result
+    matches the solo solve of its problem, `ConvergenceInfo` included:
+    with ``tol>0`` each lane stops on its own counts.  Per side, geometries
+    must share their static params (grid class and ``k``, low-rank rank,
+    point dimension and metric) but may differ in data (spacing ``h``,
+    factors, points) and, where the geometry is paddable, in size.  Grid2D
+    problems must be equal-sized.  With ``cfg.plan="lowrank"`` point
+    clouds convert to their factors before padding, and ``plan_rank``
+    must be an int.
+
+    Returns per-problem GWResults sliced back to their true sizes;
+    ``num_results`` unpacks only the first so many.  ``controls`` gives
+    every problem its own knobs (see `stack_controls`).
+
+    Segmented mode: with ``max_outer_segment=k`` every lane advances at
+    most ``k`` outer steps and the call returns ``(results,
+    resume_state)``; passing ``resume_state`` back with the same problems
+    continues the solve, bit for bit as an uninterrupted one.
+    ``resume_state`` alone runs the remaining steps to completion.
+
+    ``features`` (FGW feature costs) are not ported yet (ROADMAP A9).
+    """
+    if features is not None:
+        raise NotImplementedError(
+            "features= (FGW feature costs) is not ported yet: ROADMAP A9")
+    segmented = (resume_state is not None) or (max_outer_segment is not None)
+    if not problems:
+        return ([], None) if segmented else []
+    ops, gxs, gys = stack_problems(problems, cfg, pad_to, controls, device)
+    k = len(problems) if num_results is None else num_results
+    carry = resume_state if resume_state is not None \
+        else _init_stacked(*ops[:4], cfg)
+    carry, values = _segment_stacked(*ops, carry, cfg, max_outer_segment)
+    results = _unpack_results(info_of(carry), carry.state, values, gxs, gys,
+                              k)
+    return (results, carry) if segmented else results

@@ -73,22 +73,50 @@ def zero_mass_potentials(mu, nu):
 
 
 def _as_eps(eps, like):
-    return torch.as_tensor(eps, dtype=like.dtype, device=like.device)
+    """ε (a float, a 0-d or a (B,) tensor) as the (B,) tensor of ``like``'s
+    dtype and device the lanes of ``like`` (B, ·) read: a scalar is every
+    lane's."""
+    return kops._lane_eps(eps, like.shape[0], like)
+
+
+def _as_tol(tol, like):
+    """A tolerance as the (B,) float64 tensor the lanes compare against."""
+    tol = torch.as_tensor(tol, dtype=torch.float64, device=like.device)
+    return tol.expand(like.shape[0]) if tol.dim() == 0 else tol
+
+
+def _lift(solo: bool, *ts):
+    """One problem's tensors with a lane axis of one (None stays None)."""
+    return tuple(t if t is None or not solo else t[None] for t in ts)
+
+
+def _drop(solo: bool, *ts):
+    return tuple(t[0] if solo else t for t in ts)
+
+
+def _select(live, new, old):
+    """``new`` on the lanes where the (B,) mask ``live`` holds, ``old``
+    elsewhere, for a tuple of lane-leading tensors."""
+    return tuple(torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)),
+                             n, o) for n, o in zip(new, old))
 
 
 # ---------------------------------------------------------------------------
 # per-mode pieces: ONE home for each dual update + plan assembly, used by
-# both the fixed loops and the chunked early-stopping loops
+# both the fixed loops and the chunked early-stopping loops.  Every piece
+# takes B lanes: cost (B, M, N), measures (B, ·), ε (B,); a single problem
+# is one lane.
 # ---------------------------------------------------------------------------
 
 def _log_pieces(cost, mu, nu, eps, backend: str = "torch",
                 cost_dtype: str = "f32"):
-    """step((f,g))->(f,g) and plan_err((f,g))->(plan, L1 row-marginal gap).
+    """step((f,g))->(f,g) and plan_err((f,g))->(plan, (B,) L1 row-marginal
+    gaps).
 
     ``backend`` selects the dual update: the plain expressions below, or the
-    CUDA half-step kernels.  ``cost_dtype="bf16"`` makes the kernels read C
-    as bfloat16 (cast once per solve; the plain expressions, the plan and
-    the residual ignore it).
+    CUDA half-step kernels, one launch a half-step for all lanes.
+    ``cost_dtype="bf16"`` makes the kernels read C as bfloat16 (cast once
+    per solve; the plain expressions, the plan and the residual ignore it).
     """
     # one ε dtype for every entry point (the reference's rule): the fixed
     # and the chunked loops must feed the update the same ε, or tol=0
@@ -99,82 +127,102 @@ def _log_pieces(cost, mu, nu, eps, backend: str = "torch",
 
     if kops.resolve_sinkhorn_backend(backend, mu.device) == "kernel":
         cost_k = kops.cast_cost(cost.contiguous(), cost_dtype)
-        eps_k = eps.reshape(1)
 
         def step(carry):
             _f, g = carry
-            fn = kops.sinkhorn_row_update(cost_k, g, log_mu, eps_k)
-            gn = kops.sinkhorn_col_update(cost_k, fn, log_nu, eps_k)
+            fn = kops.sinkhorn_row_update_batched(cost_k, g, log_mu, eps)
+            gn = kops.sinkhorn_col_update_batched(cost_k, fn, log_nu, eps)
             return fn, gn
     else:
-        # the kernels' plain versions, on one lane
-        c1, e1 = cost[None], eps.reshape(1)
-
+        # the kernels' plain versions
         def step(carry):
             _f, g = carry
-            fn = sinkhorn_step.row_update_plain(c1, g[None], log_mu[None],
-                                                e1)[0]
-            gn = sinkhorn_step.col_update_plain(c1, fn[None], log_nu[None],
-                                                e1)[0]
+            fn = sinkhorn_step.row_update_plain(cost, g, log_mu, eps)
+            gn = sinkhorn_step.col_update_plain(cost, fn, log_nu, eps)
             return fn, gn
+
+    e3 = eps[:, None, None]
 
     def plan_err(carry):
         f, g = carry
-        plan = torch.exp((f[:, None] + g[None, :] - cost) / eps)
-        return plan, (plan.sum(dim=1) - mu).abs().sum()
+        plan = torch.exp((f[:, :, None] + g[:, None, :] - cost) / e3)
+        return plan, (plan.sum(dim=2) - mu).abs().sum(dim=1)
 
     return step, plan_err
 
 
+def _matvec(mat, v):
+    return torch.bmm(mat, v[:, :, None])[:, :, 0]
+
+
 def _kernel_pieces(cost, mu, nu, eps):
     """Kernel-domain pieces, stabilized by a dual shift: subtracting row/col
-    minima from C changes the scalings a, b but not the plan."""
-    rmin = cost.amin(dim=1, keepdim=True)
-    cmin = (cost - rmin).amin(dim=0, keepdim=True)
-    K = torch.exp(-(cost - rmin - cmin) / eps)
+    minima from C changes the scalings a, b but not the plan.  The matrix
+    products are batched over the lanes."""
+    e3 = _as_eps(eps, mu)[:, None, None]
+    rmin = cost.amin(dim=2, keepdim=True)
+    cmin = (cost - rmin).amin(dim=1, keepdim=True)
+    K = torch.exp(-(cost - rmin - cmin) / e3)
+    Kt = K.transpose(1, 2)
 
     def step(a):
-        return mu / (K @ (nu / (K.T @ a)))
+        return mu / _matvec(K, nu / _matvec(Kt, a))
 
     def plan_err(a):
-        b = nu / (K.T @ a)
-        plan = a[:, None] * K * b[None, :]
-        return plan, b, (plan.sum(dim=1) - mu).abs().sum()
+        b = nu / _matvec(Kt, a)
+        plan = a[:, :, None] * K * b[:, None, :]
+        return plan, b, (plan.sum(dim=2) - mu).abs().sum(dim=1)
 
     return step, plan_err
 
 
 def _chunked_loop(carry0, step_fn, residual_fn, iters: int, chunk: int, tol):
-    """The chunked early-stopping scaffold: sweeps of ``chunk`` updates
-    (the last one cut at the global ``iters`` cap), each followed by
-    ``residual_fn(new_carry, old_carry)`` and one host sync on
-    ``residual > tol``.  ``tol=0`` performs exactly ``iters`` updates.
-    Returns (carry, iters_used, last_residual)."""
-    carry, it, err = carry0, 0, None
-    while it < iters and (err is None or bool(err > tol)):
+    """The chunked early-stopping scaffold over lanes: sweeps of ``chunk``
+    updates (the last one cut at the global ``iters`` cap), each followed
+    by the (B,) ``residual_fn(new_carry, old_carry)`` and ONE host read of
+    which lanes are still over their own (B,) ``tol``.  A lane at or under
+    its tol is frozen from then on: the chunks still update every lane, and
+    a select keeps the old carry on the frozen ones, as the reference's
+    vmapped while_loop does.  ``tol=0`` performs exactly ``iters`` updates.
+    Returns (carry, iters_used per lane)."""
+    lanes = tol.shape[0]
+    live = [True] * lanes
+    used = [0] * lanes
+    carry, it = carry0, 0
+    while it < iters and any(live):
         old = carry
-        for _ in range(min(chunk, iters - it)):
-            carry = step_fn(carry)
-        it += min(chunk, iters - it)
-        err = residual_fn(carry, old)
-    return carry, it, err
+        mask = None if all(live) else torch.tensor(live, device=tol.device)
+        n = min(chunk, iters - it)
+        for _ in range(n):
+            carry = step_fn(carry) if mask is None else \
+                _select(mask, step_fn(carry), carry)
+        it += n
+        over = (residual_fn(carry, old) > tol).tolist()
+        for b in range(lanes):
+            if live[b]:
+                used[b], live[b] = it, over[b]
+    return carry, used
 
 
 # ---------------------------------------------------------------------------
-# solvers
+# solvers: each takes one problem (cost (M, N)) or B lanes (cost (B, M, N),
+# ε and tol scalars or (B,)); the lanes' iteration counts come back as a
+# list
 # ---------------------------------------------------------------------------
 
 def sinkhorn_log(cost, mu, nu, eps, iters: int, f0=None, g0=None,
                  backend: str = "torch"):
     """Log-domain Sinkhorn.  Returns (plan, f, g, err) — err = L1 row-marginal
     gap."""
+    solo = cost.dim() == 2
+    cost, mu, nu, f0, g0 = _lift(solo, cost, mu, nu, f0, g0)
     step, plan_err = _log_pieces(cost, mu, nu, eps, backend)
     carry = (torch.zeros_like(mu) if f0 is None else f0,
              torch.zeros_like(nu) if g0 is None else g0)
     for _ in range(iters):
         carry = step(carry)
     plan, err = plan_err(carry)
-    return plan, carry[0], carry[1], err
+    return _drop(solo, plan, carry[0], carry[1], err)
 
 
 def sinkhorn_log_chunked(cost, mu, nu, eps, iters: int, chunk: int, tol,
@@ -184,62 +232,75 @@ def sinkhorn_log_chunked(cost, mu, nu, eps, iters: int, chunk: int, tol,
 
     Returns (plan, f, g, err, iters_used).  ``tol=0`` runs exactly ``iters``
     updates, so it reproduces :func:`sinkhorn_log` bit-for-bit; ``tol>0``
-    stops at the first chunk whose L1 row-marginal gap is ≤ tol.
+    stops each lane at the first chunk whose L1 row-marginal gap is ≤ its
+    tol.
     """
-    eps = _as_eps(eps, mu)
+    solo = cost.dim() == 2
+    cost, mu, nu, f0, g0 = _lift(solo, cost, mu, nu, f0, g0)
     step, plan_err = _log_pieces(cost, mu, nu, eps, backend, cost_dtype)
     carry = (torch.zeros_like(mu) if f0 is None else f0,
              torch.zeros_like(nu) if g0 is None else g0)
-    carry, it, _ = _chunked_loop(carry, step,
-                                 lambda new, _old: plan_err(new)[1],
-                                 iters, chunk, tol)
+    carry, used = _chunked_loop(carry, step,
+                                lambda new, _old: plan_err(new)[1],
+                                iters, chunk, _as_tol(tol, mu))
     plan, err = plan_err(carry)
-    return plan, carry[0], carry[1], err, it
+    return _drop(solo, plan, carry[0], carry[1], err) + \
+        (used[0] if solo else used,)
 
 
 def sinkhorn_kernel(cost, mu, nu, eps, iters: int, a0=None):
     """Kernel-domain Sinkhorn (paper-literal matvec iteration)."""
+    solo = cost.dim() == 2
+    cost, mu, nu, a0 = _lift(solo, cost, mu, nu, a0)
     step, plan_err = _kernel_pieces(cost, mu, nu, eps)
     a = torch.ones_like(mu) if a0 is None else a0
     for _ in range(iters):
         a = step(a)
     plan, b, err = plan_err(a)
-    return plan, a, b, err
+    return _drop(solo, plan, a, b, err)
 
 
 def sinkhorn_kernel_chunked(cost, mu, nu, eps, iters: int, chunk: int, tol,
                             a0=None):
     """Kernel-domain counterpart of :func:`sinkhorn_log_chunked`.
     Returns (plan, a, b, err, iters_used)."""
-    eps = _as_eps(eps, mu)
+    solo = cost.dim() == 2
+    cost, mu, nu, a0 = _lift(solo, cost, mu, nu, a0)
     step, plan_err = _kernel_pieces(cost, mu, nu, eps)
     a = torch.ones_like(mu) if a0 is None else a0
-    a, it, _ = _chunked_loop(a, step, lambda new, _old: plan_err(new)[2],
-                             iters, chunk, tol)
+    (a,), used = _chunked_loop((a,), lambda c: (step(c[0]),),
+                               lambda new, _old: plan_err(new[0])[2],
+                               iters, chunk, _as_tol(tol, mu))
     plan, b, err = plan_err(a)
-    return plan, a, b, err, it
+    return _drop(solo, plan, a, b, err) + (used[0] if solo else used,)
 
 
 def _warm_scalings(f0, eps):
-    """Potentials → kernel scalings a0 = exp((f0 − shift)/ε), shifted by the
-    largest finite potential (scalings are defined up to a scalar); −inf
-    (zero-mass) entries map to 0."""
+    """Potentials → kernel scalings a0 = exp((f0 − shift)/ε), each lane
+    shifted by its largest finite potential (scalings are defined up to a
+    scalar); −inf (zero-mass) entries map to 0.  ``f0`` is (B, M), ε
+    (B,)."""
     if f0 is None:
         return None
     shift = torch.amax(torch.where(torch.isfinite(f0), f0,
-                                   torch.full_like(f0, -torch.inf)))
+                                   torch.full_like(f0, -torch.inf)),
+                       dim=-1, keepdim=True)
     shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
-    return torch.exp((f0 - shift) / eps)
+    return torch.exp((f0 - shift) / eps[:, None])
 
 
 def solve(cost, mu, nu, cfg: SinkhornConfig, f0=None, g0=None):
     if cfg.mode == "log":
         return sinkhorn_log(cost, mu, nu, cfg.eps, cfg.iters, f0, g0,
                             cfg.backend)
-    plan, a, b, err = sinkhorn_kernel(cost, mu, nu, cfg.eps, cfg.iters,
-                                      _warm_scalings(f0, cfg.eps))
+    solo = cost.dim() == 2
+    cost, mu, nu, f0 = _lift(solo, cost, mu, nu, f0)
+    plan, a, b, err = sinkhorn_kernel(
+        cost, mu, nu, cfg.eps, cfg.iters,
+        _warm_scalings(f0, _as_eps(cfg.eps, mu)))
     # scalings → potentials, so a warm start is mode-agnostic
-    return plan, cfg.eps * torch.log(a), cfg.eps * torch.log(b), err
+    return _drop(solo, plan, cfg.eps * torch.log(a), cfg.eps * torch.log(b),
+                 err)
 
 
 def solve_adaptive(cost, mu, nu, eps, iters: int, chunk: int, tol,
@@ -247,15 +308,19 @@ def solve_adaptive(cost, mu, nu, eps, iters: int, chunk: int, tol,
                    backend: str = "torch", cost_dtype: str = "f32"):
     """Mode dispatch for the convergence-controlled outer loop.  Returns
     (plan, f, g, err, iters_used) with warm-startable potentials in either
-    mode; ``backend`` applies to log mode (kernel mode is plain PyTorch)."""
-    eps = _as_eps(eps, mu)
+    mode; ``backend`` applies to log mode (kernel mode is plain PyTorch,
+    its matrix products batched over the lanes)."""
     if mode == "log":
         return sinkhorn_log_chunked(cost, mu, nu, eps, iters, chunk, tol,
                                     f0, g0, backend, cost_dtype)
-    a0 = _warm_scalings(f0, eps)
+    solo = cost.dim() == 2
+    cost, mu, nu, f0 = _lift(solo, cost, mu, nu, f0)
+    eps = _as_eps(eps, mu)
     plan, a, b, err, used = sinkhorn_kernel_chunked(
-        cost, mu, nu, eps, iters, chunk, tol, a0)
-    return plan, eps * torch.log(a), eps * torch.log(b), err, used
+        cost, mu, nu, eps, iters, chunk, tol, _warm_scalings(f0, eps))
+    e2 = eps[:, None]
+    return _drop(solo, plan, e2 * torch.log(a), e2 * torch.log(b), err) + \
+        (used[0] if solo else used,)
 
 
 # ---------------------------------------------------------------------------
@@ -265,22 +330,22 @@ def solve_adaptive(cost, mu, nu, eps, iters: int, chunk: int, tol,
 
 def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
                        backend: str = "torch", cost_dtype: str = "f32"):
-    """state0, sweep, residual for the log-domain Dykstra projection.
+    """state0, sweep, residual for the log-domain Dykstra projection, over
+    lanes: lk (B, N, r), lk_g (B, r), measures (B, ·).
 
     ``backend`` (resolved by `repro_torch.kernels.ops.
     resolve_lowrank_backend`) selects block 1 of the sweep: ``"kernel"``
-    runs each factor side as ONE call of the B5 kernel (the row duals and
-    the column LSE at those duals in one pass over the (N, r) log-kernel,
-    read as bfloat16 under ``cost_dtype="bf16"``); ``"torch"`` runs the same
-    function as the kernel's plain version, the reference's XLA
-    expressions.  The (r,)-sized dual algebra and the residual are plain
-    PyTorch under either backend.
+    runs each factor side as ONE call of the B5 kernel for all lanes (the
+    row duals and the column LSE at those duals in one pass over the
+    (N, r) log-kernels, read as bfloat16 under ``cost_dtype="bf16"``);
+    ``"torch"`` runs the same function as the kernel's plain version, the
+    reference's XLA expressions.  The (r,)-sized dual algebra and the
+    residual are plain PyTorch under either backend.
     """
     ft = mu.dtype
     log_mu = _safe_log(mu)
     log_nu = _safe_log(nu)
-    rank = lk_g.shape[-1]
-    zr = torch.zeros((rank,), dtype=ft, device=mu.device)
+    zr = torch.zeros(lk_g.shape, dtype=ft, device=mu.device)
     state0 = (torch.zeros_like(mu), torch.zeros_like(nu), zr, zr,
               lk_g.to(ft), zr, zr, zr, zr)
 
@@ -290,16 +355,16 @@ def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
         lkr_k = kops.cast_cost(lk_r.contiguous(), cost_dtype)
 
         def block1(g1, g2):
-            f1, cq = kops.lr_dykstra_half(lkq_k, g1, log_mu, cost_dtype)
-            f2, cr = kops.lr_dykstra_half(lkr_k, g2, log_nu, cost_dtype)
+            f1, cq = kops.lr_dykstra_half_batched(lkq_k, g1, log_mu,
+                                                  cost_dtype)
+            f2, cr = kops.lr_dykstra_half_batched(lkr_k, g2, log_nu,
+                                                  cost_dtype)
             return f1, f2, cq, cr
     else:
         def block1(g1, g2):
-            f1, cq = lr_step.dykstra_half_plain(lk_q[None], g1[None],
-                                                log_mu[None])
-            f2, cr = lr_step.dykstra_half_plain(lk_r[None], g2[None],
-                                                log_nu[None])
-            return f1[0], f2[0], cq[0], cr[0]
+            f1, cq = lr_step.dykstra_half_plain(lk_q, g1, log_mu)
+            f2, cr = lr_step.dykstra_half_plain(lk_r, g2, log_nu)
+            return f1, f2, cq, cr
 
     def sweep(s):
         _f1, _f2, g1, g2, h, w_gi, w_gp, w_q, w_r = s
@@ -322,9 +387,9 @@ def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
 
     def residual(s, _old):
         f1, f2, g1, g2 = s[0], s[1], s[2], s[3]
-        row_q = torch.exp(f1 + sinkhorn_step._lse(g1[None, :] + lk_q, 1))
-        row_r = torch.exp(f2 + sinkhorn_step._lse(g2[None, :] + lk_r, 1))
-        return (row_q - mu).abs().sum() + (row_r - nu).abs().sum()
+        row_q = torch.exp(f1 + sinkhorn_step._lse(g1[:, None, :] + lk_q, 2))
+        row_r = torch.exp(f2 + sinkhorn_step._lse(g2[:, None, :] + lk_r, 2))
+        return (row_q - mu).abs().sum(dim=1) + (row_r - nu).abs().sum(dim=1)
 
     return state0, sweep, residual
 
@@ -344,47 +409,55 @@ def lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters: int, chunk: int, tol,
     its three pieces.  Zero-mass atoms stay exactly 0 throughout.
 
     Runs on `_chunked_loop`: ``tol=0`` performs exactly ``iters`` sweeps;
-    ``tol>0`` stops at the first post-chunk check whose summed L1
-    row-marginal gap (Q vs μ plus R vs ν) is ≤ tol.  Returns
+    ``tol>0`` stops each lane at the first post-chunk check whose summed
+    L1 row-marginal gap (Q vs μ plus R vs ν) is ≤ its tol.  Takes one
+    problem (lk_q (M, r)) or B lanes (lk_q (B, M, r)).  Returns
     (q, r, g, err, iters_used).
     """
+    solo = lk_q.dim() == 2
+    lk_q, lk_r, lk_g, mu, nu = _lift(solo, lk_q, lk_r, lk_g, mu, nu)
     state0, sweep, residual = _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu,
                                                  log_floor, backend,
                                                  cost_dtype)
-    s, it, _ = _chunked_loop(state0, sweep, residual, iters, chunk, tol)
+    s, used = _chunked_loop(state0, sweep, residual, iters, chunk,
+                            _as_tol(tol, mu))
     f1, f2, g1, g2, h = s[0], s[1], s[2], s[3], s[4]
-    q = torch.exp(lk_q + f1[:, None] + g1[None, :])
-    r = torch.exp(lk_r + f2[:, None] + g2[None, :])
-    return q, r, torch.exp(h), residual(s, None), it
+    q = torch.exp(lk_q + f1[:, :, None] + g1[:, None, :])
+    r = torch.exp(lk_r + f2[:, :, None] + g2[:, None, :])
+    return _drop(solo, q, r, torch.exp(h), residual(s, None)) + \
+        (used[0] if solo else used,)
 
 
 def _lr_prox_kernels(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma):
-    """The KL-prox kernels of one factored mirror step:
+    """The KL-prox kernels of one factored mirror step, over lanes (factors
+    (B, N, r), ε and γ (B,)):
 
         log K = (1 − γ'ε)·log X − γ'·∇_X F,    γ' = γ / ‖∇F‖∞,
 
-    with the ∞-norm over mass-carrying rows only and zero-mass rows pinned
-    to −inf.  ε and γ enter here, folded into the kernels the Dykstra sweep
-    reads."""
+    with each lane's ∞-norm over its mass-carrying rows only and zero-mass
+    rows pinned to −inf.  ε and γ enter here, folded into the kernels the
+    Dykstra sweep reads."""
     ft = mu.dtype
-    eps = torch.as_tensor(eps, dtype=ft, device=mu.device)
-    gamma = torch.as_tensor(gamma, dtype=ft, device=mu.device)
+    eps = _as_eps(eps, mu)
+    gamma = _as_eps(gamma, mu)
     zero = torch.zeros((), dtype=ft, device=mu.device)
-    gq_m = torch.where((mu > 0)[:, None], grad_q, zero)
-    gr_m = torch.where((nu > 0)[:, None], grad_r, zero)
-    norm = torch.maximum(gq_m.abs().max(),
-                         torch.maximum(gr_m.abs().max(), grad_g.abs().max()))
+    gq_m = torch.where((mu > 0)[:, :, None], grad_q, zero)
+    gr_m = torch.where((nu > 0)[:, :, None], grad_r, zero)
+    norm = torch.maximum(gq_m.abs().amax(dim=(1, 2)),
+                         torch.maximum(gr_m.abs().amax(dim=(1, 2)),
+                                       grad_g.abs().amax(dim=1)))
     gamma_eff = gamma / torch.clamp_min(norm, torch.finfo(ft).tiny)
     # 1 − γ'ε < 0 would flip the prox into ascent on the entropy term;
     # clamping to [0, 1] degrades gracefully to the pure-gradient kernel
     coef = torch.clamp(1.0 - gamma_eff * eps, 0.0, 1.0)
     neg_inf = torch.full((), -torch.inf, dtype=ft, device=mu.device)
     one = torch.ones((), dtype=ft, device=mu.device)
-    lk_q = torch.where(q > 0, coef * torch.log(torch.where(q > 0, q, one))
-                       - gamma_eff * gq_m, neg_inf)
-    lk_r = torch.where(r > 0, coef * torch.log(torch.where(r > 0, r, one))
-                       - gamma_eff * gr_m, neg_inf)
-    lk_g = coef * _safe_log(g) - gamma_eff * grad_g
+    c3, ge3 = coef[:, None, None], gamma_eff[:, None, None]
+    lk_q = torch.where(q > 0, c3 * torch.log(torch.where(q > 0, q, one))
+                       - ge3 * gq_m, neg_inf)
+    lk_r = torch.where(r > 0, c3 * torch.log(torch.where(r > 0, r, one))
+                       - ge3 * gr_m, neg_inf)
+    lk_g = coef[:, None] * _safe_log(g) - gamma_eff[:, None] * grad_g
     return lk_q, lk_r, lk_g
 
 
@@ -393,11 +466,16 @@ def lr_mirror_step(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma,
                    backend: str = "torch", cost_dtype: str = "f32"):
     """One mirror-descent step on the factored plan (Q, R, g): the KL-prox
     kernels of `_lr_prox_kernels` projected back onto the coupling polytope
-    by `lr_dykstra_log`.  Returns (q, r, g, err, iters_used) with err the
-    post-projection L1 row-marginal gap."""
+    by `lr_dykstra_log`.  Takes one problem or B lanes (factors (B, N, r),
+    ε, γ and tol scalars or (B,)).  Returns (q, r, g, err, iters_used) with
+    err the post-projection L1 row-marginal gap."""
+    solo = q.dim() == 2
+    q, r, g, grad_q, grad_r, grad_g, mu, nu = _lift(
+        solo, q, r, g, grad_q, grad_r, grad_g, mu, nu)
     lk_q, lk_r, lk_g = _lr_prox_kernels(q, r, g, grad_q, grad_r, grad_g,
                                         mu, nu, eps, gamma)
     log_floor = torch.log(torch.tensor(g_floor, dtype=mu.dtype,
                                        device=mu.device))
-    return lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters, chunk, tol,
-                          log_floor, backend, cost_dtype)
+    out = lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters, chunk, tol,
+                         log_floor, backend, cost_dtype)
+    return _drop(solo, *out[:4]) + (out[4][0] if solo else out[4],)

@@ -130,21 +130,27 @@ def _pow2_at_least(v: int) -> int:
 def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
                 blocks_per_sm: int = DTILDE_MIN_BLOCKS_PER_SM,
                 state_blocks_per_sm: int | None = None,
-                streams: int = 2) -> DtildePlan:
+                streams: int = 2, lanes: int = 1) -> DtildePlan:
     """The scan's grid, for B3 (``streams=2``) or B4 (``streams=1``), for
-    an (N, B) x of `itemsize` bytes on a card of `sms` SMs that holds
+    an (N, lanes·cols) x of `itemsize` bytes, `lanes` problems of `cols`
+    columns each side by side, on a card of `sms` SMs that holds
     `blocks_per_sm` blocks of pass 2 and `state_blocks_per_sm` (default the
     same) of pass 1; the stream count enters the grid only through those
-    (the runtime's occupancy of each stream count's kernels).  A tile is B's
-    width up to DTILDE_COL_TILE columns (a power of two); a block starts at
-    DTILDE_THREADS threads or DTILDE_MAX_GROUPS groups, has its groups
-    halved while half of them would still hold N (a short N is one
-    segment, no carry), then while there are fewer than
+    (the runtime's occupancy of each stream count's kernels).  A tile is a
+    lane's width up to DTILDE_COL_TILE columns (a power of two); a block
+    starts at DTILDE_THREADS threads or DTILDE_MAX_GROUPS groups, has its
+    groups halved while half of them would still hold N (a short N is one
+    segment, no carry), then while one lane has fewer than
     DTILDE_MIN_BLOCKS_PER_SM items an SM; the chunk is the first of the
-    dtype's DTILDE_CHUNKS that gets there.  Each pass's grid is one wave:
-    blocks_per_sm·sms blocks, or one an item where there are fewer."""
-    if not (1 <= n <= MAX_ROWS and 1 <= cols <= MAX_ROWS):
-        raise ValueError(f"the scan cannot take an x of ({n}, {cols})")
+    dtype's DTILDE_CHUNKS that gets there.  So the chunk, the segments and
+    the carry's lanes, which fix a column's order of sums, are one lane's,
+    whatever `lanes` is: the other lanes only add tiles.  Each pass's grid
+    is one wave: blocks_per_sm·sms blocks, or one an item where there are
+    fewer."""
+    if not (1 <= n <= MAX_ROWS and 1 <= cols and lanes >= 1
+            and lanes * cols <= MAX_ROWS):
+        raise ValueError(f"the scan cannot take an x of ({n}, {cols}) "
+                         f"in {lanes} lane(s)")
     if itemsize not in DTILDE_CHUNKS:
         raise ValueError(f"the scan takes x of 4 or 8 bytes, not {itemsize}")
     if streams not in (1, 2):
@@ -167,15 +173,19 @@ def dtilde_plan(n: int, cols: int, itemsize: int, sms: int,
             break
     seg_rows = groups * chunk
     segments = -(-n // seg_rows)
+    width = lanes * cols
+    tiles = -(-width // tc)
     if tiles * segments > MAX_BLOCKS:
-        raise ValueError(f"({n}, {cols}) needs {tiles * segments} blocks")
-    lanes = min(DTILDE_CARRY_THREADS,
-                _pow2_at_least(-(-segments // DTILDE_LANE_SEGS)))
-    lane_segs = _pow2_at_least(-(-segments // lanes))
-    carry_cols = min(DTILDE_CARRY_THREADS // lanes, _pow2_at_least(cols))
+        raise ValueError(f"({n}, {width}) needs {tiles * segments} blocks")
+    carry_lanes = min(DTILDE_CARRY_THREADS,
+                      _pow2_at_least(-(-segments // DTILDE_LANE_SEGS)))
+    lane_segs = _pow2_at_least(-(-segments // carry_lanes))
+    carry_cols = min(DTILDE_CARRY_THREADS // carry_lanes,
+                     _pow2_at_least(width))
     items = tiles * segments
     return DtildePlan(chunk, seg_rows, tc, segments, groups, carry_cols,
-                      lanes, lane_segs, min(items, state_blocks_per_sm * sms),
+                      carry_lanes, lane_segs,
+                      min(items, state_blocks_per_sm * sms),
                       min(items, blocks_per_sm * sms), streams)
 
 
@@ -209,12 +219,13 @@ def _entry(tag: str):
 
 
 @functools.cache
-def _launch_plan(tag, n, cols, itemsize, p, streams, device):
-    """The scan's plan on `device` for `streams` streams, one wave of the
-    blocks its SMs hold (both passes' occupancy, asked of the runtime once
-    a shape; the call also lets the passes take their shared memory)."""
+def _launch_plan(tag, n, cols, itemsize, p, streams, lanes, device):
+    """The scan's plan on `device` for `streams` streams and `lanes` lanes
+    of `cols` columns, one wave of the blocks its SMs hold (both passes'
+    occupancy, asked of the runtime once a shape; the call also lets the
+    passes take their shared memory)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = dtilde_plan(n, cols, itemsize, sms, streams=streams)
+    plan = dtilde_plan(n, cols, itemsize, sms, streams=streams, lanes=lanes)
     fn = getattr(_library(), f"fgc_scan_residency_{tag}")
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -225,10 +236,10 @@ def _launch_plan(tag, n, cols, itemsize, p, streams, device):
         raise RuntimeError(f"fgc_scan_residency_{tag}: CUDA error {rc}, "
                            f"{list(resident)} blocks an SM")
     return dtilde_plan(n, cols, itemsize, sms, resident[1], resident[0],
-                       streams)
+                       streams, lanes)
 
 
-def _launch(x, p: int, streams: int, reverse: bool = False):
+def _launch(x, p: int, streams: int, reverse: bool = False, lanes: int = 1):
     if not x.is_cuda:
         raise ValueError("the FGC kernels take CUDA tensors")
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
@@ -242,13 +253,15 @@ def _launch(x, p: int, streams: int, reverse: bool = False):
         raise ValueError(f"the FGC kernels take 0 <= p <= {MAX_POWER}, "
                          f"got {p}")
     n, b = x.shape
+    if lanes < 1 or b % lanes:
+        raise ValueError(f"{b} columns do not split into {lanes} lanes")
     y = torch.empty_like(x)
     tag = _DTYPE_TAG[x.dtype]
     fn = _entry(tag)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        plan = _launch_plan(tag, n, b, x.element_size(), p, streams,
-                            x.device)
+        plan = _launch_plan(tag, n, b // lanes, x.element_size(), p,
+                            streams, lanes, x.device)
         # `streams` (p+1)-moment states a column and segment
         carry = torch.empty(
             (plan.segments * plan.streams * (p + 1) * b if plan.segments > 1
@@ -272,7 +285,9 @@ def apply_l_cuda(x, p: int = 1, reverse: bool = False):
     return _launch(x, p, 1, reverse)
 
 
-def apply_dtilde_cuda(x, p: int = 1):
+def apply_dtilde_cuda(x, p: int = 1, lanes: int = 1):
     """Launch the fused D̃ kernel (B3) on a contiguous CUDA (N, B) x: the
-    same scan with two streams, up to three CUDA launches."""
-    return _launch(x, p, 2)
+    same scan with two streams, up to three CUDA launches.  ``lanes``
+    problems side by side in x's columns (B/lanes each) take the plan of
+    one, so each lane's bits are those of its own call."""
+    return _launch(x, p, 2, lanes=lanes)

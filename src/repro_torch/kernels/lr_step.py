@@ -150,10 +150,12 @@ def _row_unit(r, itemsize):
 def dykstra_plan(lanes, n, r, itemsize, sms,
                  blocks_per_sm=DYKSTRA_MIN_BLOCKS_PER_SM):
     """B5's grid for `lanes` lanes of an (N, r) lk of `itemsize` bytes on a
-    card of `sms` SMs that holds `blocks_per_sm` of its blocks: one wave of
-    blocks_per_sm·sms blocks over all lanes (at least
-    DYKSTRA_MIN_BLOCKS_PER_SM an SM, fewer only where N has fewer row
-    units), none empty."""
+    card of `sms` SMs that holds `blocks_per_sm` of its blocks: one lane's
+    wave of blocks_per_sm·sms blocks (at least DYKSTRA_MIN_BLOCKS_PER_SM
+    an SM, fewer only where N has fewer row units), none empty.  The lanes
+    multiply the grid's lane axis and nothing else, so a lane's blocks and
+    merge order, and so its bits, are those of the same lane alone; a
+    batch of lanes runs in lanes waves."""
     if not (1 <= lanes <= MAX_LANES and 1 <= n <= MAX_ROWS
             and 1 <= r <= MAX_COLS):
         raise ValueError(f"B5 cannot take {lanes} lanes of ({n}, {r})")
@@ -163,7 +165,7 @@ def dykstra_plan(lanes, n, r, itemsize, sms,
     tile_rows = dykstra_tile_rows(r, itemsize)
     per_sm = max(DYKSTRA_MIN_BLOCKS_PER_SM, blocks_per_sm)
     units = -(-n // unit)
-    blocks = min(units, max(1, -(-per_sm * sms // lanes)))
+    blocks = min(units, per_sm * sms)
     block_rows = -(-units // blocks) * unit
     return DykstraPlan(tile_rows, unit, block_rows,
                        -(-block_rows // tile_rows), blocks)
@@ -248,10 +250,11 @@ def gram_plan(lanes, n, c, r, itemsize, sms,
               blocks_per_sm=GRAM_MIN_BLOCKS_PER_SM):
     """B6's grid for `lanes` lanes of (N, c) factors and an (N, r) Q of
     `itemsize` bytes on a card of `sms` SMs that holds `blocks_per_sm` of
-    its blocks: one wave of blocks_per_sm·sms blocks over all lanes (at
-    least GRAM_MIN_BLOCKS_PER_SM an SM, fewer only where N has fewer rows
-    or the merge's scratch would pass GRAM_MERGE_VALUES a lane), none
-    empty."""
+    its blocks: one lane's wave of blocks_per_sm·sms blocks (at least
+    GRAM_MIN_BLOCKS_PER_SM an SM, fewer only where N has fewer rows or the
+    merge's scratch would pass GRAM_MERGE_VALUES a lane), none empty.  As
+    in `dykstra_plan`, the lanes multiply the grid's lane axis only, so a
+    lane's partials and their merge are those of the same lane alone."""
     if not (1 <= lanes <= MAX_LANES and 1 <= n <= MAX_ROWS
             and 1 <= c <= MAX_COLS and 1 <= r <= MAX_COLS):
         raise ValueError(f"B6 cannot take {lanes} lanes of ({n}, {c}) "
@@ -259,7 +262,7 @@ def gram_plan(lanes, n, c, r, itemsize, sms,
     if itemsize not in (4, 8):
         raise ValueError(f"B6 takes 4 or 8 bytes a value, not {itemsize}")
     per_sm = max(GRAM_MIN_BLOCKS_PER_SM, blocks_per_sm)
-    blocks = min(n, max(1, per_sm * sms // lanes), GRAM_MAX_BLOCKS,
+    blocks = min(n, per_sm * sms, GRAM_MAX_BLOCKS,
                  max(1, GRAM_MERGE_VALUES // ((2 * c + 2) * r)))
     return GramPlan(gram_tile_rows(c, r, itemsize), blocks)
 

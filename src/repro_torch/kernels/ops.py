@@ -129,10 +129,12 @@ def fgc_apply_l(x, p: int = 1, reverse: bool = False):
     return fgc_scan.apply_l_plain(x, p, reverse)
 
 
-def fgc_apply_dtilde(x, p: int = 1):
-    """y = (L + Lᵀ) x along axis 0 of an (N, B) array: the fused D̃ apply."""
+def fgc_apply_dtilde(x, p: int = 1, lanes: int = 1):
+    """y = (L + Lᵀ) x along axis 0 of an (N, B) array: the fused D̃ apply.
+    ``lanes`` problems side by side in the columns (B/lanes each) run in one
+    launch, each lane with the plan of its own call."""
     if x.is_cuda:
-        y = fgc_scan.apply_dtilde_cuda(x, p)
+        y = fgc_scan.apply_dtilde_cuda(x, p, lanes)
         LAUNCHES["fgc_apply_dtilde"] += 1
         return y
     return fgc_scan.apply_dtilde_plain(x, p)

@@ -69,12 +69,16 @@ def col_split(lanes, m, n, cost_bytes, sms):
 
     A block covers 32 threads × (16 / cost_bytes) columns and all rows of
     one split.  The split count aims at COL_BLOCKS_PER_SM·sms blocks over
-    the column tiles and lanes; a split is a multiple of SPLIT_ROWS rows
-    (whole steps of the block's warps in every dtype), and none is
-    empty."""
+    one lane's column tiles, whatever the lane count: the lanes only
+    multiply the grid's lane axis, so a lane's splits, and the order in
+    which `col_finish` merges them, are those of the same lane alone.  A
+    split is a multiple of SPLIT_ROWS rows (whole steps of the block's
+    warps in every dtype), and none is empty."""
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"{lanes} lanes: the grid takes 1 to {MAX_LANES}")
     cols = 32 * (16 // cost_bytes)
     tiles = -(-n // cols)
-    want = max(1, -(-COL_BLOCKS_PER_SM * sms // (tiles * lanes)))
+    want = max(1, -(-COL_BLOCKS_PER_SM * sms // tiles))
     split_rows = -(-(-(-m // want)) // SPLIT_ROWS) * SPLIT_ROWS
     splits = -(-m // split_rows)
     if splits > MAX_SPLITS:

@@ -7,6 +7,7 @@ installed:
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
+import ctypes
 import math
 
 import numpy as np
@@ -829,3 +830,243 @@ def _sq_factors(p):
     sq = (p ** 2).sum(1, keepdim=True)
     one = torch.ones_like(sq)
     return torch.cat([sq, one, -2 * p], 1), torch.cat([one, sq, p], 1)
+
+
+# ---------------------------------------------------------------------------
+# lanes: a lane's bits do not depend on the batch it rides in
+# ---------------------------------------------------------------------------
+
+_LANE_EPS = (5e-2, 2e-2, 8e-3, 2e-3, 1e-3)
+
+
+def _ragged_mask(n, lanes, dev):
+    """Lane b keeps its first n − 37·b rows; the last lane has none (a
+    zero-mass lane)."""
+    keep = [n - 37 * b for b in range(lanes - 1)] + [0]
+    return torch.arange(n, device=dev)[None, :] < \
+        torch.tensor(keep, device=dev)[:, None]
+
+
+def _lanes_alone(fn, args):
+    """fn on each lane of its lane-leading args alone."""
+    lanes = args[0].shape[0]
+    outs = [fn(*(a[b:b + 1] for a in args)) for b in range(lanes)]
+    return [o if isinstance(o, tuple) else (o,) for o in outs]
+
+
+def _bits(t):
+    """A float tensor's bit patterns (NaN payloads included)."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def _assert_lanes_alone(batched, alone):
+    batched = batched if isinstance(batched, tuple) else (batched,)
+    for b, single in enumerate(alone):
+        for x, y in zip(batched, single):
+            assert torch.equal(_bits(x[b]), _bits(y[0])), f"lane {b}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["row", "col"])
+def test_half_step_lanes_take_their_own_bits(dev, dtype, kind):
+    """Five lanes in one launch equal five one-lane launches bit for bit:
+    ragged rows and columns (−inf duals and log-mass past each lane's
+    size), a zero-mass lane and one ε a lane."""
+    lanes, m, n = 5, 700, 900
+    gen = _gen(41)
+    cost = torch.rand((lanes, m, n), generator=gen, device=dev, dtype=dtype)
+    vlen, wlen = (n, m) if kind == "row" else (m, n)
+    vec = torch.randn((lanes, vlen), generator=gen, device=dev, dtype=dtype)
+    vec = torch.where(_ragged_mask(vlen, lanes, dev), vec, -math.inf)
+    logw = torch.where(_ragged_mask(wlen, lanes, dev), -math.log(wlen),
+                       -math.inf).to(dtype)
+    eps = torch.tensor(_LANE_EPS, device=dev, dtype=dtype)
+    fn = getattr(ops, f"sinkhorn_{kind}_update_batched")
+    args = (cost, vec, logw, eps)
+    _assert_lanes_alone(fn(*args), _lanes_alone(fn, args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,cols", [(700, 300), (8192, 1), (300_000, 1),
+                                    (64, 4099)])
+def test_fgc_dtilde_lanes_take_their_own_bits(dev, dtype, n, cols):
+    """B3 with five lanes folded into its columns equals each lane's own
+    call bit for bit (a zero lane included)."""
+    lanes = 5
+    x = torch.randn((n, lanes * cols), generator=_gen(42), device=dev,
+                    dtype=dtype)
+    x[:, -cols:] = 0.0
+    for p in (1, 2):
+        got = ops.fgc_apply_dtilde(x, p, lanes=lanes)
+        for b in range(lanes):
+            own = ops.fgc_apply_dtilde(
+                x[:, b * cols:(b + 1) * cols].contiguous(), p)
+            assert torch.equal(_bits(got[:, b * cols:(b + 1) * cols]),
+                               _bits(own))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,r", [(100_003, 16), (300, 5), (8192, 64)])
+def test_dykstra_half_lanes_take_their_own_bits(dev, dtype, n, r):
+    lanes = 5
+    lk = torch.randn((lanes, n, r), generator=_gen(43), device=dev,
+                     dtype=dtype)
+    live = _ragged_mask(n, lanes, dev)
+    lk = torch.where(live[:, :, None], lk, -math.inf)
+    gcol = torch.randn((lanes, r), generator=_gen(44), device=dev,
+                       dtype=dtype)
+    logw = torch.where(live, -math.log(n), -math.inf).to(dtype)
+    args = (lk, gcol, logw)
+    _assert_lanes_alone(ops.lr_dykstra_half_batched(*args),
+                        _lanes_alone(ops.lr_dykstra_half_batched, args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,c,r", [(100_003, 5, 16), (300, 12, 16),
+                                   (1000, 5, 6)])
+def test_lowrank_gradient_lanes_take_their_own_bits(dev, dtype, n, c, r):
+    """B6 and B7 with five lanes (zero factor rows past each lane's size, a
+    zero lane) equal five one-lane launches bit for bit."""
+    lanes, gen = 5, _gen(45)
+    z = _ragged_mask(n, lanes, dev).to(dtype)
+    a, b = (torch.randn((lanes, n, c), generator=gen, device=dev,
+                        dtype=dtype) * z[:, :, None] for _ in range(2))
+    q = torch.rand((lanes, n, r), generator=gen, device=dev,
+                   dtype=dtype) * z[:, :, None] / n
+    w = torch.rand((lanes, n), generator=gen, device=dev, dtype=dtype) * z
+    args = (a, b, q, w)
+    _assert_lanes_alone(ops.lr_gram_chain_batched(*args),
+                        _lanes_alone(ops.lr_gram_chain_batched, args))
+    wm = torch.randn((lanes, c, r), generator=gen, device=dev, dtype=dtype)
+    s_, t_, iq = (torch.randn((lanes, r), generator=gen, device=dev,
+                              dtype=dtype) for _ in range(3))
+    args = (a, wm, w, s_, t_, iq)
+    _assert_lanes_alone(ops.lr_grad_combine_batched(*args),
+                        _lanes_alone(ops.lr_grad_combine_batched, args))
+
+
+def _dtilde_plan_one_problem(n, cols, itemsize, sms, blocks_per_sm,
+                             state_blocks_per_sm, streams):
+    """The scan's plan for one problem as it is written without the lane
+    argument: what `fgc_scan.dtilde_plan(lanes=1)` must still return."""
+    pow2 = fgc_scan._pow2_at_least
+    tc = min(fgc_scan.DTILDE_COL_TILE, pow2(cols))
+    tiles = -(-cols // tc)
+    want = fgc_scan.DTILDE_MIN_BLOCKS_PER_SM * sms
+    for chunk in fgc_scan.DTILDE_CHUNKS[itemsize]:
+        groups = min(fgc_scan.DTILDE_MAX_GROUPS, fgc_scan.DTILDE_THREADS // tc)
+        while groups > 1 and groups // 2 * chunk >= n:
+            groups //= 2
+        while groups > 1 and tiles * -(-n // (groups * chunk)) < want:
+            groups //= 2
+        if tiles * -(-n // (groups * chunk)) >= want:
+            break
+    seg_rows = groups * chunk
+    segments = -(-n // seg_rows)
+    lanes = min(fgc_scan.DTILDE_CARRY_THREADS,
+                pow2(-(-segments // fgc_scan.DTILDE_LANE_SEGS)))
+    lane_segs = pow2(-(-segments // lanes))
+    carry_cols = min(fgc_scan.DTILDE_CARRY_THREADS // lanes, pow2(cols))
+    items = tiles * segments
+    return fgc_scan.DtildePlan(chunk, seg_rows, tc, segments, groups,
+                               carry_cols, lanes, lane_segs,
+                               min(items, state_blocks_per_sm * sms),
+                               min(items, blocks_per_sm * sms), streams)
+
+
+# Runs A–E's applies: A's 8192² and its C1 column, B's unfolded axes, E's
+# (8192, 16) factor apply
+@pytest.mark.parametrize("n,cols", [(8192, 8192), (8192, 1), (64, 262144),
+                                    (64, 1), (8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("streams", [2, 1])
+def test_dtilde_plan_one_lane_is_unchanged(dev, n, cols, dtype, streams):
+    """At one lane the launch plan on this card, its occupancy included,
+    equals the one-problem plan field by field."""
+    size = torch.empty((), dtype=dtype).element_size()
+    tag = fgc_scan._DTYPE_TAG[dtype]
+    got = fgc_scan._launch_plan(tag, n, cols, size, 1, streams, 1, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = getattr(fgc_scan._library(), f"fgc_scan_residency_{tag}")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    resident = (ctypes.c_int * 2)()
+    first = fgc_scan.dtilde_plan(n, cols, size, sms, streams=streams)
+    assert fn(1, streams, first.col_tile, first.groups, first.chunk,
+              resident) == 0
+    assert got == _dtilde_plan_one_problem(n, cols, size, sms, resident[1],
+                                           resident[0], streams)
+
+
+# ---------------------------------------------------------------------------
+# batches on the card
+# ---------------------------------------------------------------------------
+
+def _measures_np(n, seed):
+    u = np.random.default_rng(seed).random(n) + 0.05
+    return u / u.sum()
+
+
+def test_dense_batch_matches_solo_counts(dev):
+    """Ragged Grid1D lanes on the kernels, per-lane ε: each lane's counts
+    equal its solo solve's, its plan and value within f64 rounding."""
+    from repro_torch.core import SolveControls, entropic_gw_batch
+    probs = [(Grid1D(m, 1 / (m - 1), 1), Grid1D(n, 1 / (n - 1), 1),
+              _measures_np(m, 2 * i), _measures_np(n, 2 * i + 1))
+             for i, (m, n) in enumerate([(300, 260), (220, 300), (180, 200),
+                                         (256, 256)])]
+    cfg = GWConfig(eps=2e-3, eps_init=5e-2, tol=1e-6, outer_iters=30,
+                   sinkhorn_iters=300, backend="kernel")
+    ctls = [SolveControls.make(e, 1e-6, 5e-2, device=dev)
+            for e in (5e-2, 2e-2, 8e-3, 2e-3)]
+    ops.reset_launch_counts()
+    out = entropic_gw_batch(probs, cfg, pad_to=(320, 320), controls=ctls)
+    assert ops.LAUNCHES["sinkhorn_row_update"] < \
+        sum(r.info.inner_iters for r in out)
+    for r, p, c in zip(out, probs, ctls):
+        solo = entropic_gw(*p, cfg, controls=c)
+        assert (r.info.outer_iters, r.info.inner_iters) == \
+            (solo.info.outer_iters, solo.info.inner_iters)
+        assert float((r.plan - solo.plan).abs().sum()) <= 1e-6
+        assert abs(float(r.value - solo.value)) <= 1e-8 * abs(float(solo.value))
+
+
+def test_factored_batch_matches_solo_counts(dev):
+    from repro_torch.core import entropic_gw_batch
+    rng = np.random.default_rng(46)
+    probs = []
+    for m, n in ((300, 380), (350, 300), (400, 400)):
+        probs.append((PointCloudGeometry(torch.tensor(rng.normal(size=(m, 3)),
+                                                      device=dev)),
+                      PointCloudGeometry(torch.tensor(rng.normal(size=(n, 3)),
+                                                      device=dev)),
+                      np.ones(m) / m, np.ones(n) / n))
+    cfg = GWConfig(eps=5e-2, outer_iters=15, sinkhorn_iters=50, tol=1e-6,
+                   eps_init=0.5, anneal_decay=0.7, plan="lowrank",
+                   plan_rank=8)
+    ops.reset_launch_counts()
+    out = entropic_gw_batch(probs, cfg, pad_to=(400, 400))
+    steps = max(r.info.outer_iters for r in out)
+    assert ops.LAUNCHES["lr_grad_combine"] == 2 * steps
+    for r, p in zip(out, probs):
+        solo = entropic_gw(*p, cfg)
+        assert (r.info.outer_iters, r.info.inner_iters) == \
+            (solo.info.outer_iters, solo.info.inner_iters)
+        assert float(r.coupling.delta(solo.coupling)) <= 1e-6
+        assert abs(float(r.value - solo.value)) <= 1e-8 * abs(float(solo.value))
+
+
+def test_controls_build_nothing(dev):
+    """ε, tol and the schedule are run-time tensors: a solve with other
+    values of them leaves the build directory as it was."""
+    from repro_torch.kernels import build
+    n = 200
+    grid = Grid1D(n, 1 / (n - 1), 1)
+    mu, nu = _measures_np(n, 1), _measures_np(n, 2)
+    entropic_gw(grid, grid, mu, nu, GWConfig(backend="kernel", eps=2e-3))
+    before = sorted(p.name for p in build.build_dir().iterdir())
+    for knobs in (dict(eps=8e-3), dict(eps=2e-3, tol=1e-6, eps_init=5e-2),
+                  dict(eps=5e-3, tol=1e-5, eps_init=0.1, anneal_decay=0.7,
+                       inner_loosen=0.0)):
+        entropic_gw(grid, grid, mu, nu, GWConfig(backend="kernel", **knobs))
+    assert sorted(p.name for p in build.build_dir().iterdir()) == before

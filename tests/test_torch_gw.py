@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro import core as jcore
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert
 from repro_torch import core
 
@@ -172,3 +173,73 @@ def test_convert_maps_reference_names():
     coup = convert.full_coupling(np.eye(3), np.zeros(3), np.zeros(3),
                                  device="cpu")
     assert coup.plan.dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
+# solo surfaces the batch's exactness rests on, each against the reference
+# at this file's bars
+# ---------------------------------------------------------------------------
+
+def _zero_mass(w, dead):
+    w = w.copy()
+    w[dead] = 0.0
+    return w / w.sum()
+
+
+def _solve_both(tg_x, tg_y, jg_x, jg_y, mu, nu, **knobs):
+    jcfg = jcore.GWConfig(**knobs)
+    rj = jcore.entropic_gw(jg_x, jg_y, jnp.asarray(mu), jnp.asarray(nu),
+                           jcfg)
+    rt = core.entropic_gw(tg_x, tg_y, mu, nu,
+                          convert.gw_config(dataclasses.asdict(jcfg)),
+                          device="cpu")
+    _assert_same_solve(rt, rj)
+    return rt
+
+
+@pytest.mark.parametrize("mode", ["fixed", "annealed"])
+def test_entropic_gw_kernel_mode_matches_reference(mode):
+    """The paper-table Sinkhorn mode end to end (ε 2e-2: the kernel
+    exp(−C/ε) underflows at the paper's 2e-3 on this grid)."""
+    tg, jg, mu, nu = _case("Grid1D", 40, 1)
+    knobs = dict(FIXED if mode == "fixed" else ANNEALED, eps=2e-2,
+                 sinkhorn_mode="kernel")
+    _solve_both(tg, tg, jg, jg, mu, nu, **knobs)
+
+
+def test_entropic_gw_unequal_grids_match_reference():
+    m, n = 30, 45
+    mu, nu = _measures(m, 0), _measures(n, 1)
+    _solve_both(core.Grid1D(m, 1 / (m - 1), 1), core.Grid1D(n, 1 / (n - 1), 1),
+                jcore.Grid1D(m, 1 / (m - 1), 1),
+                jcore.Grid1D(n, 1 / (n - 1), 1), mu, nu, **ANNEALED)
+
+
+@pytest.mark.parametrize("mode,eps", [("log", 2e-3), ("kernel", 2e-2)])
+def test_entropic_gw_zero_mass_matches_reference(mode, eps):
+    """Zero-mass atoms in μ and ν: −inf potentials there, exactly zero plan
+    rows and columns, no NaN."""
+    tg, jg, mu, nu = _case("Grid1D", 40, 1)
+    mu, nu = _zero_mass(mu, slice(3, 7)), _zero_mass(nu, slice(33, 40))
+    rt = _solve_both(tg, tg, jg, jg, mu, nu,
+                     **dict(ANNEALED, eps=eps, sinkhorn_mode=mode))
+    assert not bool(torch.isnan(rt.plan).any())
+    assert float(rt.plan[3:7].abs().max()) == 0.0
+    assert float(rt.plan[:, 33:].abs().max()) == 0.0
+    assert bool(torch.isneginf(rt.f[3:7]).all())
+
+
+@pytest.mark.parametrize("mode", ["fixed", "annealed"])
+def test_entropic_gw_grid2d_k2_matches_reference(mode):
+    tg, jg, mu, nu = _case("Grid2D", 5, 2)
+    _solve_both(tg, tg, jg, jg, mu, nu,
+                **(FIXED if mode == "fixed" else ANNEALED))
+
+
+def test_entropic_gw_decay_flat_tol_ragged_chunk_matches_reference():
+    """anneal_decay 0.7 (ε_t's pow is not exact), inner_loosen 0 (a flat
+    inner tolerance) and a chunk that does not divide the inner cap."""
+    tg, jg, mu, nu = _case("Grid1D", 40, 1)
+    _solve_both(tg, tg, jg, jg, mu, nu,
+                **dict(ANNEALED, anneal_decay=0.7, inner_loosen=0.0,
+                       sinkhorn_iters=100, sinkhorn_chunk=7))

@@ -260,8 +260,10 @@ def test_dykstra_plan_fills_the_card(n, r, itemsize):
 
 @pytest.mark.parametrize("lanes", [2, 3, 64])
 def test_dykstra_plan_spreads_lanes(lanes):
-    """Several lanes share the wave: blocks·lanes covers it."""
+    """Several lanes: each lane takes one lane's plan (its blocks and so its
+    order of sums), the lanes only multiply the grid."""
     plan = lr_step.dykstra_plan(lanes, 10 ** 5, 16, 8, 132)
+    assert plan == lr_step.dykstra_plan(1, 10 ** 5, 16, 8, 132)
     assert plan.blocks * lanes >= 2 * 132
 
 
@@ -356,13 +358,12 @@ def test_gram_plan_fills_the_card(n, r, itemsize):
 
 @pytest.mark.parametrize("lanes", [2, 3, 5, 64, 500])
 def test_gram_plan_spreads_lanes(lanes):
-    """Several lanes share one wave: the lanes' blocks together fill it
-    and do not pass it (one block a lane once lanes outnumber it)."""
+    """Several lanes: each lane takes one lane's plan, a wave of two blocks
+    an SM, whatever the lane count (so a lane's partials and their merge
+    are those of the lane alone); the lanes only multiply the grid."""
     plan = lr_step.gram_plan(lanes, 10 ** 5, 5, 16, 8, 132)
-    if lanes <= 2 * 132:
-        assert 2 * 132 - lanes < plan.blocks * lanes <= 2 * 132
-    else:
-        assert plan.blocks == 1
+    assert plan == lr_step.gram_plan(1, 10 ** 5, 5, 16, 8, 132)
+    assert plan.blocks == 2 * 132
 
 
 @pytest.mark.parametrize("c,r", [(1, 1), (5, 1), (5, 6), (5, 16), (5, 32),
@@ -549,6 +550,44 @@ def test_dtilde_plan_refuses(n, cols, itemsize, sms, what, streams):
 def test_dtilde_plan_refuses_stream_counts(streams):
     with pytest.raises(ValueError, match="streams"):
         fgc_scan.dtilde_plan(64, 4, 8, 132, streams=streams)
+
+
+# the fields that fix a column's order of sums: chunk, segments, groups and
+# the carry's lanes (the other fields only place the work on the card)
+_PER_COLUMN = ("chunk", "seg_rows", "col_tile", "segments", "groups",
+               "lanes", "lane_segs", "streams")
+
+
+@pytest.mark.parametrize("n,cols", _DT_TARGETS + [(2048, 2048), (2048, 1),
+                                                  (100_003, 7), (64, 4099),
+                                                  (1, 1), (257, 9000)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("lanes", [2, 5, 16])
+@_STREAMS
+def test_dtilde_plan_lanes_keep_one_lanes_sums(n, cols, itemsize, lanes,
+                                               streams):
+    """Lanes side by side in x's columns take one lane's plan: every field
+    that fixes a column's order of sums is the (N, cols) plan's, the grid
+    covers all lanes' columns, and lanes=1 is the default plan."""
+    one = fgc_scan.dtilde_plan(n, cols, itemsize, 132, streams=streams)
+    assert fgc_scan.dtilde_plan(n, cols, itemsize, 132, streams=streams,
+                                lanes=1) == one
+    many = fgc_scan.dtilde_plan(n, cols, itemsize, 132, streams=streams,
+                                lanes=lanes)
+    assert all(getattr(many, f) == getattr(one, f) for f in _PER_COLUMN)
+    assert _dt_valid(many, n, lanes * cols, streams)
+
+
+@pytest.mark.parametrize("lanes", [2, 16, 65535])
+@pytest.mark.parametrize("m,n,cost_bytes", [(2048, 2048, 8), (8192, 8192, 4),
+                                            (4096, 4096, 8), (300, 1029, 2)])
+def test_col_split_is_one_lanes(lanes, m, n, cost_bytes):
+    """The column kernel splits each lane's rows as it splits one lane's,
+    so col_finish merges a lane's splits in the same order in any batch."""
+    assert sinkhorn_step.col_split(lanes, m, n, cost_bytes, 132) == \
+        sinkhorn_step.col_split(1, m, n, cost_bytes, 132)
+    with pytest.raises(ValueError, match="lanes"):
+        sinkhorn_step.col_split(0, m, n, cost_bytes, 132)
 
 
 def _shift(p, rows):

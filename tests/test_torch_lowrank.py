@@ -16,6 +16,7 @@ from repro.core import gradient as jgrad
 from repro.core import sinkhorn as jsk
 from repro.core.geometry import LowRankGeometry as JLR
 from repro.core.geometry import PointCloudGeometry as JPC
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import convert, core
 from repro_torch.core import sinkhorn as sk
 
@@ -158,11 +159,10 @@ def test_lr_dykstra_log_matches_reference(iters, chunk, tol):
 # ---------------------------------------------------------------------------
 
 def _force_fused(monkeypatch):
-    """The fused route (plain B6/B7 on the CPU) on factor pairs."""
-    monkeypatch.setattr(
-        core.LowRankGradientOperator, "_use_fused",
-        lambda self: isinstance(self.geom_x, core.LowRankGeometry)
-        and isinstance(self.geom_y, core.LowRankGeometry))
+    """The fused route (plain B6/B7 on the CPU) on factor pairs, one
+    problem's or a batch's stacked ones."""
+    monkeypatch.setattr(core.LowRankGradientOperator, "_use_fused",
+                        core.LowRankGradientOperator._factor_pairs)
 
 
 def _operator_case(kind):
