@@ -52,7 +52,18 @@ result line:
    steps; profiled once.  Run G (4 ragged 3-D Gaussian cloud lanes of
    80 000–100 000 points padded to 100 000, rank 16, f64), each lane
    against its solo solve.  Both check the launches: one a half-step (B5:
-   a sweep side) for all lanes.
+   a sweep side) for all lanes.  Then gradients through the implicit
+   backward pass (``core.solver.fixed_point_value``): Run H (the gradient
+   of a converged ``Grid1D(8192)`` f64 solve in h, a 0-d tensor, and in μ,
+   ν; kernels forward against plain forward, and against a central finite
+   difference), Run I (the trainer's FGW alignment loss,
+   ``fgw_alignment_loss_batch``, on 8 ragged pairs of 1536–2048 tokens at
+   d = 2048, f32, its gradient to the student's states; kernels against
+   plain by Run A's rule, each lane against its solo loss, exact zeros on
+   the padded feature rows) and Run J (the gradient to one 10⁵-point
+   cloud of a rank-16 factored solve, under a memory budget).  Each prints
+   its forward and backward walls, the Neumann terms of each lane and the
+   peak device memory; no backward launches a kernel.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -1312,32 +1323,36 @@ def phase_lowrank_path(torch, np, ops, core):
 # phase 3, batches: Runs F and G through entropic_gw_batch
 # ---------------------------------------------------------------------------
 
-class SweepCount:
-    """Records how many updates each chunked inner loop ran for its batch
-    (the most any lane used: the lanes still running advance together), so
-    the launch counts can be held to one launch a half-step for all lanes."""
+class Recorded:
+    """Records what each call of ``mod.name`` returns while in use: the
+    inner loops' counts of a batch (`sinkhorn._chunked_loop`), the
+    Neumann terms of each lane (`solver.neumann_series`), the stacked
+    feature costs of a batch (`gw._stack_features`)."""
 
-    def __init__(self, core):
-        self.mod, self.calls = core.sinkhorn, []
-        self.real = self.mod._chunked_loop
+    def __init__(self, mod, name):
+        self.mod, self.name, self.out = mod, name, []
+        self.real = getattr(mod, name)
 
     def __enter__(self):
-        def loop(*args, **kw):
-            carry, used = self.real(*args, **kw)
-            self.calls.append(max(used, default=0))
-            return carry, used
-        self.mod._chunked_loop = loop
+        def call(*args, **kw):
+            out = self.real(*args, **kw)
+            self.out.append(out)
+            return out
+        setattr(self.mod, self.name, call)
         return self
 
     def __exit__(self, *exc):
-        self.mod._chunked_loop = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def run_batch(torch, ops, core, label, fn):
     """`run_path` with the batch's inner loops counted."""
-    with SweepCount(core) as sweeps:
+    # the most any lane of a loop used: the lanes still running advance
+    # together, one launch an update for all of them
+    with Recorded(core.sinkhorn, "_chunked_loop") as loops:
         out, counts, wall = run_path(torch, ops, label, fn)
-    return out, counts, wall, sum(sweeps.calls)
+    return out, counts, wall, sum(max(used, default=0)
+                                  for _, used in loops.out)
 
 
 def compacted(core, batch, probs, ctls, outer_cap):
@@ -1536,6 +1551,280 @@ def phase_batch_path(torch, np, ops, core):
     del rk, kp, pp
     say(f"  Runs F and G with their checks: {time.perf_counter() - start:.1f}"
         " s of wall in all")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 3, gradients: Runs H, I, J through the implicit backward pass
+# ---------------------------------------------------------------------------
+
+#: Run H: Run A's width, an ε and tol at which the solve converges (Run A's
+#: ε = 2e-3 at tol 0 does not), and a Neumann cap the series reaches its
+#: tol under (at ε = 2e-2 it takes ~180 terms on Grid1D(1024))
+H_CONTROLS = dict(eps=2e-2, tol=1e-10, outer_iters=60, sinkhorn_iters=2000,
+                  implicit_solve_iters=300)
+H_FD_STEP = 1e-4                # the central difference's step, over h
+#: Run I: the trainer's FGW distillation loss (src/repro/train/loop.py:32)
+#: on 8 ragged sequence pairs at olmo_1b's d_model
+#: (src/repro/configs/olmo_1b.py:9), float32 hidden states
+LANES_I, S_I_MIN, S_I_MAX, D_I = 8, 1536, 2048, 2048
+#: Run J: Run G's scale, rank 16, the smooth-regime step size γ = 5 of the
+#: reference's gradient tests (tests/test_implicit_grad.py:20-26).  From the
+#: rank-2 start the Gaussian clouds' solve stays at the product coupling,
+#: a fixed point that is stable at γ = 5 (at Run C's γ = 30 it is not, and
+#: the Neumann series diverges there), so a central difference along a
+#: random direction checks the gradient
+N_J = 100_000
+J_CONTROLS = dict(eps=5e-2, tol=1e-8, outer_iters=60, sinkhorn_iters=100,
+                  plan="lowrank", plan_rank=R_LR, lr_gamma=5.0)
+J_FD_STEP = 1e-4
+J_MEMORY_BUDGET = 8 * 2 ** 30   # bytes; one (10⁵)² f64 array is 80 GB
+
+
+def backward_path(torch, ops, core, label, out, wrt):
+    """The gradients of ``out`` to ``wrt``, on the host clock around
+    synchronised work, with each lane's Neumann terms and the device's
+    peak memory since the forward's reset.  The backward is plain PyTorch:
+    it launches no kernel."""
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with Recorded(core.solver, "neumann_series") as series:
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(out, wrt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  {label}: backward {wall:.3f} s wall, Neumann terms per lane "
+        f"{[terms for _, terms in series.out]}, peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    check(not any(ops.LAUNCHES.values()), f"{label}: the backward "
+          f"launched kernels {ops.LAUNCHES}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{label}: non-finite gradient")
+    return grads, wall, peak
+
+
+def rel_max(torch, got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def run_h(torch, np, ops, core, add, walls):
+    """Run H: the dense implicit gradient at Run A's width, in h (a 0-d
+    tensor), μ and ν, kernels (B1/B2) forward against plain forward, and
+    against central finite differences."""
+    n = N_BIG
+    h0 = 1 / (n - 1)
+    mu_np, nu_np = measures(np, n, SEED + 30), measures(np, n, SEED + 31)
+    cfg = core.GWConfig(backend="cumsum", sinkhorn_backend="auto",
+                        **H_CONTROLS)
+    say(f"  Run H controls: ε {cfg.eps:g}, tol {cfg.tol:g}, outer cap "
+        f"{cfg.outer_iters}, inner cap {cfg.sinkhorn_iters}, Neumann cap "
+        f"{cfg.implicit_solve_iters} at tol {cfg.implicit_solve_tol:g}")
+
+    def solve(c, h, mu, nu):
+        return core.entropic_gw(core.Grid1D(n, h, 1), core.Grid1D(n, h0, 1),
+                                mu, nu, c)
+
+    grads = {}
+    for route in ("kernels", "plain"):
+        c = cfg if route == "kernels" else \
+            dataclasses.replace(cfg, sinkhorn_backend="torch")
+        leaves = (torch.tensor(h0, dtype=torch.float64, device="cuda",
+                               requires_grad=True),
+                  torch.tensor(mu_np, device="cuda", requires_grad=True),
+                  torch.tensor(nu_np, device="cuda", requires_grad=True))
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, walls[f"H forward {route}"] = run_path(
+            torch, ops, f"Run H Grid1D({n}) float64 {route}, h μ ν "
+            "requiring grad", lambda: solve(c, *leaves))
+        if route == "kernels":
+            add(counts)
+            for name in ("sinkhorn_row_update", "sinkhorn_col_update"):
+                check(counts[name] > 0, f"Run H: {name} never launched")
+            check(res.info.converged, "Run H: the solve did not converge")
+            rk = res
+        else:
+            compare_runs(torch, "Run H float64", rk, res, 1e-8, 1e-6)
+        grads[route], walls[f"H backward {route}"], _ = backward_path(
+            torch, ops, core, f"Run H {route}", res.value, leaves)
+        del res
+    gk, gp = grads["kernels"], grads["plain"]
+    apart = [rel_max(torch, a, b) for a, b in zip(gk, gp)]
+    say(f"  Run H gradients, kernels forward vs plain forward: relative "
+        f"max Δ in h, μ, ν {apart} (tolerance 1e-6)")
+    check(max(apart) <= 1e-6, "Run H: the gradients differ")
+    d = H_FD_STEP * h0
+    vals = [float(solve(cfg, h0 + s * d, mu_np, nu_np).value)
+            for s in (1, -1)]
+    fd = (vals[0] - vals[1]) / (2 * d)
+    rel = abs(fd - float(gk[0])) / abs(fd)
+    say(f"  Run H d value/dh: implicit {float(gk[0]):.15e}, central "
+        f"difference (step {H_FD_STEP:g} h) {fd:.15e}, relative Δ "
+        f"{rel:.3e} (tolerance 1e-6)")
+    check(rel <= 1e-6, "Run H: the gradient misses the finite difference")
+    check(float(gk[1].abs().max()) > 0 and float(gk[2].abs().max()) > 0,
+          "Run H: zero gradient in the measures")
+
+
+def run_i(torch, np, ops, core, add, walls):
+    """Run I: the trainer's batched FGW alignment loss and its gradient to
+    the student's hidden states, kernels against plain by Run A's f32
+    rule, each lane against its solo loss, padded feature rows exact
+    zeros.
+
+    A lane's gradient is its solo loss's / 8 within 1e-6 relative in f64.
+    In f32 that bar is below the gradient's own accuracy: the batch pads
+    each lane, and a padded reduction rounds in another order than an
+    unpadded one, at a state 3 outer steps in whose Neumann series is cut
+    at 60 terms (on an H100 80GB HBM3 at 700 W, f32 lanes sit 1.6e-4 to
+    6.4e-4 from the solo f64 gradient, as their solo f32 gradients do; f64
+    lanes 5.6e-11 at most from their solo ones).  So the f32 lanes are
+    held to Run A's rule against the solo f64 gradient."""
+    sizes = ragged_sizes(np, S_I_MIN, S_I_MAX, LANES_I, SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    student = [rng.standard_normal((int(s), D_I), dtype=np.float32)
+               for s, _ in sizes]
+    teacher = [rng.standard_normal((int(t), D_I), dtype=np.float32)
+               for _, t in sizes]
+    cfg = core.AlignConfig(theta=0.5, outer_iters=3, sinkhorn_iters=30)
+    plain = dataclasses.replace(cfg, sinkhorn_backend="torch")
+
+    def states(dt):
+        return ([torch.tensor(x, device="cuda", dtype=dt,
+                              requires_grad=True) for x in student],
+                [torch.tensor(x, device="cuda", dtype=dt) for x in teacher])
+
+    out = {}
+    for route, c, dt in (("kernels", cfg, torch.float32),
+                         ("plain", plain, torch.float32),
+                         ("kernels f64", cfg, torch.float64),
+                         ("plain f64", plain, torch.float64)):
+        hs, ht = states(dt)
+        torch.cuda.reset_peak_memory_stats()
+        with Recorded(core.gw, "_stack_features") as feats:
+            loss, counts, walls[f"I forward {route}"] = run_path(
+                torch, ops, f"Run I {LANES_I} pairs {sizes.min()}–"
+                f"{sizes.max()} tokens, d {D_I}, {route}",
+                lambda: core.fgw_alignment_loss_batch(hs, ht, c))
+        if route == "kernels":
+            add(counts)
+            for name in ("sinkhorn_row_update", "sinkhorn_col_update"):
+                check(counts[name] > 0, f"Run I: {name} never launched")
+        grads, walls[f"I backward {route}"], _ = backward_path(
+            torch, ops, core, f"Run I {route}", loss, hs + feats.out)
+        out[route] = (loss.detach(), grads[:-1], grads[-1], hs, ht)
+    (lk, gk, feat_grad, hs32, ht32), (lp, gp, *_), \
+        (lk64, gk64, _, hs64, ht64), (l64, g64, *_) = (
+            out[k] for k in ("kernels", "plain", "kernels f64",
+                             "plain f64"))
+    ev = tied_to_f64(torch, lk.reshape(1), lp.reshape(1), l64.reshape(1))
+    eg = tied_to_f64(torch, torch.cat([g.flatten() for g in gk]),
+                     torch.cat([g.flatten() for g in gp]),
+                     torch.cat([g.flatten() for g in g64]))
+    rel64 = max([abs(float(lk64) - float(l64)) / abs(float(l64))]
+                + [rel_max(torch, a, b) for a, b in zip(gk64, g64)])
+    say(f"  Run I loss {float(lk):.9e} (kernels) {float(lp):.9e} (plain) "
+        f"{float(l64):.15e} (plain f64); distance from f64, kernels / plain "
+        f"/ limit: value {ev[0]:.3e} / {ev[1]:.3e} / {ev[2]:.3e}, gradients "
+        f"{eg[0]:.3e} / {eg[1]:.3e} / {eg[2]:.3e} (Run A's f32 rule); f64 "
+        f"kernels vs plain: relative max Δ {rel64:.3e} (tolerance 1e-8)")
+    check(ev[0] <= ev[2] and eg[0] <= eg[2],
+          "Run I: kernels and plain differ beyond Run A's f32 rule")
+    check(rel64 <= 1e-8, "Run I: f64 kernels and plain differ")
+    m, n = feat_grad.shape[1:]
+    pad_rows = [float(feat_grad[b, s:].abs().max()) if s < m else 0.0
+                for b, (s, _) in enumerate(sizes)]
+    pad_cols = [float(feat_grad[b, :, t:].abs().max()) if t < n else 0.0
+                for b, (_, t) in enumerate(sizes)]
+    live = [float(feat_grad[b, :s, :t].abs().max())
+            for b, (s, t) in enumerate(sizes)]
+    say(f"  Run I feature-cost gradient: largest on padded rows "
+        f"{max(pad_rows)}, padded columns {max(pad_cols)}; on live entries "
+        f"{min(live):.3e} at least")
+    check(max(pad_rows) == 0.0 and max(pad_cols) == 0.0 and min(live) > 0,
+          "Run I: padded feature rows carry gradient")
+    apart64, tied32 = [], []
+    for b in range(LANES_I):
+        solo = [torch.autograd.grad(core.fgw_alignment_loss(
+            hs[b], ht[b], cfg), hs[b])[0] / LANES_I
+            for hs, ht in ((hs64, ht64), (hs32, ht32))]
+        apart64.append(rel_max(torch, gk64[b], solo[0]))
+        tied32.append(tied_to_f64(torch, gk[b], solo[1], solo[0]))
+    say(f"  Run I lanes against their solo losses / {LANES_I}: f64 relative "
+        f"max Δ {[f'{a:.2e}' for a in apart64]} (tolerance 1e-6); f32 "
+        f"distance from the solo f64 gradient, lane / solo / limit "
+        f"{[tuple(f'{x:.2e}' for x in t) for t in tied32]}")
+    check(max(apart64) <= 1e-6, "Run I: an f64 lane's gradient is not its "
+          "solo one's")
+    check(all(t[0] <= t[2] for t in tied32), "Run I: an f32 lane's "
+          "gradient is further from the f64 one than Run A's rule allows")
+
+
+def run_j(torch, np, ops, core, add, walls):
+    """Run J: the factored implicit gradient to one cloud's points at Run
+    G's scale, where no dense plan can exist; kernels (B5–B7) forward
+    against plain forward."""
+    cfg = core.GWConfig(**J_CONTROLS)
+    pts_np = np.random.default_rng(SEED + 50).normal(size=(N_J, 3))
+    gy = cloud(torch, np, N_J, SEED + 51, torch.float64)
+    mu = torch.full((N_J,), 1.0 / N_J, dtype=torch.float64, device="cuda")
+    res, grads = {}, {}
+    for route in ("kernels", "plain"):
+        c = cfg if route == "kernels" else \
+            dataclasses.replace(cfg, lowrank_backend="torch")
+        pts = torch.tensor(pts_np, device="cuda", requires_grad=True)
+        torch.cuda.reset_peak_memory_stats()
+        res[route], counts, walls[f"J forward {route}"] = run_path(
+            torch, ops, f"Run J clouds {N_J}x3 rank {R_LR} float64 {route}, "
+            "points requiring grad",
+            lambda: core.entropic_gw(core.PointCloudGeometry(pts), gy, mu,
+                                     mu, c))
+        if route == "kernels":
+            add(counts)
+            check_lr_launches("Run J", counts, res[route].info, True)
+        (grads[route],), walls[f"J backward {route}"], peak = \
+            backward_path(torch, ops, core, f"Run J {route}",
+                          res[route].value, (pts,))
+        if route == "kernels":
+            say(f"  Run J peak device memory {peak / 2**30:.3f} GiB (budget "
+                f"{J_MEMORY_BUDGET / 2**30:g} GiB)")
+            check(peak <= J_MEMORY_BUDGET, "Run J: over its memory budget")
+    compare_lowrank(torch, "Run J float64", res["kernels"], res["plain"],
+                    1e-8, 1e-6)
+    check(res["kernels"].info.converged, "Run J: the solve did not converge")
+    apart = rel_max(torch, grads["kernels"], grads["plain"])
+    say(f"  Run J gradients, kernels forward vs plain forward: relative max "
+        f"Δ {apart:.3e} (tolerance 1e-6)")
+    check(apart <= 1e-6, "Run J: the gradients differ")
+    direction = np.random.default_rng(SEED + 52).normal(size=(N_J, 3))
+    vals = [float(core.entropic_gw(core.PointCloudGeometry(torch.tensor(
+        pts_np + s * J_FD_STEP * direction, device="cuda")), gy, mu, mu,
+        cfg).value) for s in (1, -1)]
+    fd = (vals[0] - vals[1]) / (2 * J_FD_STEP)
+    implicit = float((grads["kernels"]
+                      * torch.tensor(direction, device="cuda")).sum())
+    rel = abs(fd - implicit) / abs(fd)
+    say(f"  Run J derivative along a random direction: implicit "
+        f"{implicit:.15e}, central difference (step {J_FD_STEP:g}) "
+        f"{fd:.15e}, relative Δ {rel:.3e} (tolerance 1e-6)")
+    check(rel <= 1e-6, "Run J: the gradient misses the finite difference")
+
+
+def phase_grad_path(torch, np, ops, core):
+    """Runs H, I, J: reverse mode through `fixed_point_value`."""
+    say("phase 3, gradients: the implicit backward pass")
+    start = time.perf_counter()
+    launches = {k: 0 for k in ops.LAUNCHES}
+    walls = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for run in (run_h, run_i, run_j):
+        run(torch, np, ops, core, add, walls)
+    say(f"  Runs H, I and J with their checks: "
+        f"{time.perf_counter() - start:.1f} s of wall in all")
     return launches, walls
 
 
@@ -1892,7 +2181,8 @@ def main() -> int:
         errs.update(phase_lane_kernels(torch, np, ops, sinkhorn_step,
                                        fgc_scan, lr_step))
         launches, walls = phase_main_path(torch, np, ops, core, gen)
-        for phase in (phase_lowrank_path, phase_batch_path):
+        for phase in (phase_lowrank_path, phase_batch_path,
+                      phase_grad_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v

@@ -13,15 +13,15 @@ stacked carry, with `solve_controls` for its stacked controls).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from repro_torch.core.coupling import FullCoupling, LowRankCoupling
+from repro_torch.core.fgw import FGWConfig
 from repro_torch.core.geometry import LowRankGeometry, PointCloudGeometry
 from repro_torch.core.grids import Grid1D, Grid2D
 from repro_torch.core.gw import GWConfig, as_tensor, resolve_device
+from repro_torch.core.losses import AlignConfig
 from repro_torch.core.solver import MirrorCarry, SolveControls
 
 #: the reference's FGC backend names → the port's
@@ -41,21 +41,30 @@ def grid2d(n: int, h: float, k: int) -> Grid2D:
     return Grid2D(int(n), float(h), int(k))
 
 
-def gw_config(fields: dict) -> GWConfig:
-    """A port `GWConfig` from ``dataclasses.asdict`` of a reference one.
-
-    Backend names are mapped ("pallas" → "kernel", "xla" → "torch").
-    Fields of features the port does not have yet (reverse-mode gradients)
-    are dropped: they do not act on a forward solve.
-    """
-    known = {f.name for f in dataclasses.fields(GWConfig)}
-    kw = {k: v for k, v in fields.items() if k in known}
+def _backend_names(fields: dict) -> dict:
+    """``fields`` with the reference's backend names mapped to the port's
+    ("pallas" → "kernel", "xla" → "torch")."""
+    kw = dict(fields)
     for key, names in (("backend", FGC_BACKEND_NAMES),
                        ("sinkhorn_backend", SINKHORN_BACKEND_NAMES),
                        ("lowrank_backend", LOWRANK_BACKEND_NAMES)):
         if key in kw:
             kw[key] = names[kw[key]]
-    return GWConfig(**kw)
+    return kw
+
+
+def gw_config(fields: dict) -> GWConfig:
+    """A port `GWConfig` from ``dataclasses.asdict`` of a reference one
+    (every field, the gradient's ``grad_mode`` and ``implicit_*``
+    included), or an `FGWConfig` when the fields hold ``theta``."""
+    return (FGWConfig if "theta" in fields else GWConfig)(
+        **_backend_names(fields))
+
+
+def align_config(fields: dict) -> AlignConfig:
+    """A port `AlignConfig` from ``dataclasses.asdict`` of a reference
+    one."""
+    return AlignConfig(**_backend_names(fields))
 
 
 def solve_controls(eps, tol, eps_init, anneal_decay, inner_loosen, lr_gamma,

@@ -11,13 +11,16 @@ Public API of this slice:
               the factored plan's Dykstra projection and mirror step
   coupling  — FullCoupling (dense plan + log potentials), LowRankCoupling
               (factors Q, R, g) and its cold starts
-  solver    — the convergence-controlled mirror-descent loop
-  gw        — entropic_gw (forward, dense or factored plan) and
+  solver    — the convergence-controlled mirror-descent loop, and the
+              implicit differentiation surface (fixed_point_value)
+  gw        — entropic_gw (dense or factored plan, differentiable) and
               entropic_gw_batch (many problems as lanes: padded, per-lane
-              controls and stopping, segmented resume)
+              controls and stopping, FGW feature costs, segmented resume)
+  fgw       — entropic_fgw (fused GW: a feature cost beside the structure)
+  losses    — the FGW sequence and patch alignment losses
 """
-from repro_torch.core import (coupling, fgc, geometry, gradient, grids, gw,
-                              sinkhorn, solver)
+from repro_torch.core import (coupling, fgc, fgw, geometry, gradient, grids,
+                              gw, losses, sinkhorn, solver)
 from repro_torch.core.coupling import (Coupling, FullCoupling,
                                        LowRankCoupling, coupling_delta,
                                        full_init, lowrank_init)
@@ -26,32 +29,45 @@ from repro_torch.core.geometry import (DenseGeometry, DenseStack, Geometry,
                                        LowRankGeometry, LowRankStack,
                                        PointCloudGeometry, PointCloudStack,
                                        StackedGeometry, as_geometry)
+from repro_torch.core.fgw import (FGWConfig, entropic_fgw, fgw_energy,
+                                  fgw_full_value, fgw_lr_step_fn,
+                                  fgw_lr_value, fgw_step_fn)
 from repro_torch.core.gradient import GradientOperator, LowRankGradientOperator
 from repro_torch.core.grids import Grid1D, Grid2D, gw_product, gw_product_dense
 from repro_torch.core.gw import (GWConfig, GWResult, entropic_gw,
                                  entropic_gw_batch, gw_energy, gw_init_state,
                                  gw_lr_step_fn, gw_plan_segment,
-                                 gw_plan_solve, gw_step_fn, lowrank_descent,
-                                 stack_controls, stack_problems)
-from repro_torch.core.solver import (ConvergenceInfo, MirrorCarry,
-                                     SolveControls, info_of, init_carry,
+                                 gw_plan_solve, gw_step_fn, implicit_spec,
+                                 lowrank_descent, stack_controls,
+                                 stack_problems)
+from repro_torch.core.losses import (AlignConfig, fgw_alignment_loss,
+                                     fgw_alignment_loss_batch,
+                                     fgw_patch_alignment_loss)
+from repro_torch.core.solver import (ConvergenceInfo, ImplicitSpec,
+                                     MirrorCarry, SolveControls,
+                                     fixed_point_value, info_of, init_carry,
                                      mirror_descent, mirror_descent_segment,
-                                     resolve_controls)
+                                     plan_delta, resolve_controls)
 
 __all__ = [
-    "coupling", "fgc", "geometry", "gradient", "grids", "gw", "sinkhorn",
-    "solver",
+    "coupling", "fgc", "fgw", "geometry", "gradient", "grids", "gw",
+    "losses", "sinkhorn", "solver",
     "Coupling", "FullCoupling", "LowRankCoupling", "coupling_delta",
     "full_init", "lowrank_init",
     "DenseGeometry", "DenseStack", "Geometry", "GridGeometry", "GridStack",
     "LowRankGeometry", "LowRankStack", "PointCloudGeometry",
     "PointCloudStack", "StackedGeometry", "as_geometry",
+    "FGWConfig", "entropic_fgw", "fgw_energy", "fgw_full_value",
+    "fgw_lr_step_fn", "fgw_lr_value", "fgw_step_fn",
     "GradientOperator", "LowRankGradientOperator",
     "Grid1D", "Grid2D", "gw_product", "gw_product_dense",
     "GWConfig", "GWResult", "entropic_gw", "entropic_gw_batch", "gw_energy",
     "gw_init_state", "gw_lr_step_fn", "gw_plan_segment", "gw_plan_solve",
-    "gw_step_fn", "lowrank_descent", "stack_controls", "stack_problems",
-    "ConvergenceInfo", "MirrorCarry", "SolveControls", "info_of",
-    "init_carry", "mirror_descent", "mirror_descent_segment",
-    "resolve_controls",
+    "gw_step_fn", "implicit_spec", "lowrank_descent", "stack_controls",
+    "stack_problems",
+    "AlignConfig", "fgw_alignment_loss", "fgw_alignment_loss_batch",
+    "fgw_patch_alignment_loss",
+    "ConvergenceInfo", "ImplicitSpec", "MirrorCarry", "SolveControls",
+    "fixed_point_value", "info_of", "init_carry", "mirror_descent",
+    "mirror_descent_segment", "plan_delta", "resolve_controls",
 ]

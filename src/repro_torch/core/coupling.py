@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import geometry as geo
 from repro_torch.core import sinkhorn as sk
 from repro_torch.core.grids import Grid1D
+from repro_torch.core.solver import fields_of
 
 
 class Coupling:
@@ -36,11 +37,11 @@ class Coupling:
         """Equal-shaped couplings stacked lane-leading (one coupling as a
         view with a lane axis of one)."""
         return cls(*(geo.stack_lanes(ts) for ts in zip(
-            *(dataclasses.astuple(c) for c in couplings))))
+            *(fields_of(c) for c in couplings))))
 
     def lane(self, b: int) -> "Coupling":
         """Lane ``b`` of a lane-leading coupling."""
-        return type(self)(*(t[b] for t in dataclasses.astuple(self)))
+        return type(self)(*(t[b] for t in fields_of(self)))
 
     def select(self, live, other: "Coupling") -> "Coupling":
         """This coupling on the lanes where the (B,) mask ``live`` holds,
@@ -49,7 +50,7 @@ class Coupling:
             return torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)),
                                n, o)
         return type(self)(*(pick(n, o) for n, o in zip(
-            dataclasses.astuple(self), dataclasses.astuple(other))))
+            fields_of(self), fields_of(other))))
 
     def delta(self, other: "Coupling"):
         """L1-style movement between two iterates (the outer loop's delta_fn)."""

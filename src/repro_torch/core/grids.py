@@ -10,6 +10,10 @@ form ``D_hat`` (2D, eq. 3.10).  What the solvers need from a grid is
 
 ``power_mult=2`` gives the elementwise-squared distances of the constant
 term C1: (h^k |i-j|^k)² = h^{2k} |i-j|^{2k}.
+
+The spacing ``h`` is a Python float, or a 0-d tensor when a gradient with
+respect to it is wanted (`repro_torch.core.solver.fixed_point_value`):
+h^p is then a tensor op, and a float's h^p stays a host float.
 """
 from __future__ import annotations
 
@@ -23,10 +27,11 @@ from repro_torch.core import fgc
 
 @dataclasses.dataclass(frozen=True)
 class Grid1D:
-    """Uniform 1D grid of ``n`` points with spacing ``h``; metric |x-x'|^k."""
+    """Uniform 1D grid of ``n`` points with spacing ``h`` (a float or a 0-d
+    tensor); metric |x-x'|^k."""
 
     n: int
-    h: float = 1.0
+    h: float | torch.Tensor = 1.0
     k: int = 1
 
     @property
@@ -63,7 +68,7 @@ class Grid2D:
     """
 
     n: int
-    h: float = 1.0
+    h: float | torch.Tensor = 1.0
     k: int = 1
 
     @property
@@ -122,16 +127,21 @@ def apply_dist_lanes(grids, x, axis: int, power_mult: int = 1,
     """y = D_b^{⊙power_mult} ·_axis x_b for the lanes b of a lane-leading x
     (``axis`` ≥ 1), one grid a lane; the grids share their class, n and k,
     and may differ in h.  One apply serves every lane (the kernel backend
-    launches once, each lane with its own plan); h_b^p is taken on the host
-    as a Python float, as `Grid1D.apply_dist` takes it, and only then
-    becomes a (B,) tensor of x's dtype."""
+    launches once, each lane with its own plan); a float h_b^p is taken on
+    the host, as `Grid1D.apply_dist` takes it, a tensor h_b's in float64
+    on its device, and only then is each rounded to x's dtype."""
     g0 = grids[0]
     if axis % x.dim() == 0:
         raise ValueError("axis 0 of a lane-leading x is the lane axis")
     p = g0.k * power_mult
     y = g0.apply_unscaled(x, axis, power_mult, backend, lanes=len(grids))
-    scale = torch.tensor([g.h ** p for g in grids], dtype=y.dtype,
-                         device=y.device)
+    if any(torch.is_tensor(g.h) for g in grids):
+        scale = torch.stack([torch.as_tensor(g.h, dtype=torch.float64,
+                                             device=y.device) ** p
+                             for g in grids]).to(y.dtype)
+    else:
+        scale = torch.tensor([g.h ** p for g in grids], dtype=y.dtype,
+                             device=y.device)
     return scale.reshape((-1,) + (1,) * (y.dim() - 1)) * y
 
 

@@ -1,13 +1,14 @@
 """Entropic Gromov-Wasserstein by mirror descent (paper §2.1) with the FGC
-fast gradient (paper §3) — forward, dense or factored plan.
+fast gradient (paper §3), dense or factored plan, reverse-mode
+differentiable.
 
 Reference: ``repro/core/gw.py`` (``GWConfig``, ``GWResult``, ``gw_energy``,
 ``gw_step_fn``, ``gw_lr_step_fn``, ``gw_init_state``, ``gw_plan_solve``,
-``gw_plan_segment``, ``lowrank_descent``, ``entropic_gw`` with
-``plan="full"`` and ``plan="lowrank"``, and the batch surface
-``entropic_gw_batch`` with ``stack_problems``, ``stack_controls`` and its
-segmented resume; FGW feature costs and reverse-mode differentiation
-belong to later slices).
+``gw_plan_segment``, ``lowrank_descent``, the implicit functions
+``_implicit_*`` and ``implicit_spec``, ``entropic_gw`` with ``plan="full"``
+and ``plan="lowrank"``, and the batch surface ``entropic_gw_batch`` with
+``stack_problems``, ``stack_controls``, FGW feature costs
+(``_stack_features``) and its segmented resume).
 
 Each outer iteration with the dense plan (``plan="full"``):
     Π   = ∇E(Γ) = C1 − 4·D_X Γ D_Y          (FGC: O(k²MN); dense: O(M²N+MN²))
@@ -18,6 +19,17 @@ the factored plan (``plan="lowrank"``) the state is P = Q diag(1/g) Rᵀ
 a Dykstra projection replaces Sinkhorn, so no (M, N) array exists and
 point clouds run as their factored costs.  Both are driven by
 `repro_torch.core.solver.mirror_descent_segment`.
+
+Reverse mode: `entropic_gw` and the one-shot `entropic_gw_batch` run
+through `repro_torch.core.solver.fixed_point_value`, one call for all lanes
+of a stack, so their values and plans are differentiable in the
+geometries' tensors (a grid's ``h`` given as a 0-d tensor, factors,
+points, costs), the measures, the feature costs and the controls.  The
+backward pass is rebuilt from the converged state (`implicit_spec`); the
+forward runs any backend, kernels included, except that a grid on the FGC
+kernel backend cannot be differentiated (as in the reference, whose Pallas
+scan has no transpose).  Segmented solves and ``plan_rank="auto"`` are
+not differentiable and say so.
 
 `entropic_gw_batch` solves many problems as one set of lane-leading
 tensors: each side's geometries are padded to one size with zero-mass
@@ -50,10 +62,11 @@ from repro_torch.core.coupling import (Coupling, FullCoupling,
 from repro_torch.core.geometry import (Geometry, as_geometry, stack,
                                        stack_lanes)
 from repro_torch.core.gradient import GradientOperator, LowRankGradientOperator
-from repro_torch.core.solver import (ConvergenceInfo, MirrorCarry,
-                                     SolveControls, info_of, init_carry,
+from repro_torch.core.solver import (ConvergenceInfo, ImplicitSpec,
+                                     MirrorCarry, SolveControls, fields_of,
+                                     fixed_point_value, info_of, init_carry,
                                      mirror_descent, mirror_descent_segment,
-                                     resolve_controls)
+                                     resolve_controls, tensor_leaves)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,6 +110,18 @@ class GWConfig:
     anneal_decay: float = 0.5  # geometric ε decay per outer step
     sinkhorn_chunk: int = 25   # inner iterations between residual checks
     inner_loosen: float = 1.0  # inner-tol ε-scaling strength (0 → flat tol)
+    #: reverse-mode gradient: "implicit" (the envelope term plus the
+    #: Neumann fixed-point correction of `solver.fixed_point_value`) or
+    #: "envelope" (the Danskin term only: exact as tol → 0, cheaper)
+    grad_mode: str = "implicit"
+    #: the backward's one-step map: dual-update pairs per T̃ (full plan)
+    #: and Dykstra sweeps per T̃ (factored plan, whose projection re-walks
+    #: its duals from zero)
+    implicit_inner_steps: int = 1
+    implicit_lr_sweeps: int = 25
+    #: the Neumann series' cap and per-lane stop on its latest term's L1
+    implicit_solve_iters: int = 60
+    implicit_solve_tol: float = 1e-10
     #: cost element type the Sinkhorn kernels read ("f32" | "bf16"); the
     #: plain path ignores it
     cost_dtype: str = "f32"
@@ -123,6 +148,10 @@ class GWConfig:
         if self.plan not in ("full", "lowrank"):
             raise ValueError(
                 f"unknown plan {self.plan!r}: expected 'full' or 'lowrank'")
+        if self.grad_mode not in ("implicit", "envelope"):
+            raise ValueError(
+                f"unknown grad_mode {self.grad_mode!r}: expected "
+                "'implicit' or 'envelope'")
         if self.cost_dtype not in ("f32", "bf16"):
             raise ValueError(f"unknown cost_dtype {self.cost_dtype!r}: "
                              "expected 'f32' or 'bf16'")
@@ -282,8 +311,23 @@ def entropic_gw(grid_x, grid_y, mu, nu, cfg: GWConfig = GWConfig(),
     ``plan_rank="auto"`` grows the rank by restarts (`lowrank_descent`).
     ``gamma0`` is a dense-plan warm start and is rejected there.
 
-    The solve is `entropic_gw_batch`'s on a batch of one, unpadded.
+    The solve is `entropic_gw_batch`'s on a batch of one, unpadded, and is
+    reverse-mode differentiable (see the module docstring); at
+    ``plan_rank="auto"`` it is not.
     """
+    return _solve_one(grid_x, grid_y, mu, nu, cfg, gamma0, controls, device)
+
+
+def _requires_grad(*trees) -> bool:
+    """Does a tensor of these trees (tuples, dataclasses) require grad,
+    with grad mode on?"""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensor_leaves(trees))
+
+
+def _solve_one(grid_x, grid_y, mu, nu, cfg: GWConfig, gamma0, controls,
+               device, feature_cost=None) -> GWResult:
+    """`entropic_gw` and, with ``feature_cost``, `fgw.entropic_fgw`."""
     dev = resolve_device(device)
     if cfg.plan == "lowrank":
         if gamma0 is not None:
@@ -291,18 +335,24 @@ def entropic_gw(grid_x, grid_y, mu, nu, cfg: GWConfig = GWConfig(),
                 "gamma0 is a dense-plan warm start; the factored path "
                 "starts from its own feasible factors")
         if isinstance(cfg.plan_rank, str):
-            return _entropic_gw_lowrank_auto(
+            if _requires_grad(grid_x, grid_y, mu, nu, feature_cost,
+                              controls):
+                raise ValueError(
+                    "plan_rank='auto' restarts on the host's reading of "
+                    "the residuals and is not differentiable: give a "
+                    "static plan_rank to differentiate")
+            return _entropic_lowrank_auto(
                 grid_x, grid_y, as_tensor(mu, dev), as_tensor(nu, dev), cfg,
-                resolve_controls(cfg, controls, dev))
+                resolve_controls(cfg, controls, dev),
+                None if feature_cost is None else as_tensor(feature_cost,
+                                                            dev))
     ops, gxs, gys = stack_problems(
         [(grid_x, grid_y, mu, nu)], cfg,
-        controls=None if controls is None else [controls], device=dev)
+        controls=None if controls is None else [controls], device=dev,
+        features=None if feature_cost is None else [feature_cost])
     state0 = None if gamma0 is None else full_init(
         ops[2], ops[3], as_tensor(gamma0, dev)[None].to(ops[2].dtype))
-    carry, values = _segment_stacked(*ops, _init_stacked(*ops[:4], cfg,
-                                                         state0), cfg)
-    return _unpack_results(info_of(carry), carry.state, values, gxs, gys,
-                           1)[0]
+    return _solve_stacked(ops, state0, cfg, gxs, gys, 1)[0]
 
 
 _AUTO_RANK_START = 8        # plan_rank="auto" first attempt
@@ -357,18 +407,37 @@ def lowrank_descent(step, mu, nu, cfg: GWConfig, ctl: SolveControls,
                                      inner_iters=inner)
 
 
-def _entropic_gw_lowrank_auto(grid_x, grid_y, mu, nu, cfg: GWConfig,
-                              ctl: SolveControls) -> GWResult:
-    """Factored-plan entropic GW at ``plan_rank="auto"``: the factors are
-    seeded from the converted geometries (the operator's factored pair),
-    and the value is the operator's energy at the final factors."""
+def _entropic_lowrank_auto(grid_x, grid_y, mu, nu, cfg: GWConfig,
+                           ctl: SolveControls, feature_cost=None) -> GWResult:
+    """Factored-plan entropic GW (FGW with ``feature_cost``) at
+    ``plan_rank="auto"``: the factors are seeded from the converted
+    geometries (the operator's factored pair), and the value is the
+    objective at the final factors."""
     op = LowRankGradientOperator(grid_x, grid_y, cfg.backend, cfg.cost_rank,
                                  cfg.lowrank_backend)
+    fsq = None if feature_cost is None else feature_cost ** 2
+    coup, info = lowrank_descent(_lr_step(op, mu, nu, fsq, cfg, ctl.lr_gamma),
+                                 mu, nu, cfg, ctl, op.geom_x, op.geom_y)
+    return _result_of(coup, _lr_value(op, coup, fsq, cfg), info)
+
+
+def _lr_step(op, mu, nu, fsq, cfg: GWConfig, lr_gamma):
+    """The factored step closure of GW, or of FGW with the squared feature
+    cost ``fsq`` (the solve's one (M, N) build)."""
+    from repro_torch.core import fgw
     dx2, dy2 = op.constant_term(mu, nu)
-    step = gw_lr_step_fn(op, dx2, dy2, mu, nu, cfg, ctl.lr_gamma)
-    coup, info = lowrank_descent(step, mu, nu, cfg, ctl, op.geom_x,
-                                 op.geom_y)
-    return _result_of(coup, op.energy(coup, cfg.g_floor), info)
+    if fsq is None:
+        return gw_lr_step_fn(op, dx2, dy2, mu, nu, cfg, lr_gamma)
+    return fgw.fgw_lr_step_fn(op, dx2, dy2, fsq, cfg.theta, mu, nu, cfg,
+                              lr_gamma)
+
+
+def _lr_value(op, coup, fsq, cfg: GWConfig):
+    """The GW energy of a factored plan, or its FGW objective."""
+    from repro_torch.core import fgw
+    if fsq is None:
+        return op.energy(coup, cfg.g_floor)
+    return fgw.fgw_lr_value(op, fsq, coup, cfg.theta, cfg.g_floor)
 
 
 # ---------------------------------------------------------------------------
@@ -395,26 +464,142 @@ def _init_lane(geom_x, geom_y, mu, nu, cfg: GWConfig) -> MirrorCarry:
                       mu.device)
 
 
-def _segment_stacked(geoms_x, geoms_y, mus, nus, controls: SolveControls,
-                     carry: MirrorCarry, cfg: GWConfig,
-                     segment: int | None = None):
+def _segment_stacked(geoms_x, geoms_y, mus, nus, feats,
+                     controls: SolveControls, carry: MirrorCarry,
+                     cfg: GWConfig, segment: int | None = None):
     """Advance every lane of a batch's carry by ≤ ``segment`` outer steps
-    and return (carry, values): ``values`` is each lane's GW energy at its
+    and return (carry, values): ``values`` is each lane's GW energy (FGW
+    objective, when ``feats`` holds the stacked feature costs) at its
     current plan.  One-shot and segmented solves both run this body, and
     the constant term is recomputed on each call from (geometry, μ, ν), so
     a solve cut into segments equals an uninterrupted one bit for bit."""
+    from repro_torch.core import fgw
     if cfg.plan == "lowrank":
         op = LowRankGradientOperator(geoms_x, geoms_y, cfg.backend,
                                      cfg.cost_rank, cfg.lowrank_backend)
-        dx2, dy2 = op.constant_term(mus, nus)
-        step = gw_lr_step_fn(op, dx2, dy2, mus, nus, cfg, controls.lr_gamma)
-        carry = mirror_descent_segment(step, coupling_delta, controls,
-                                       cfg.outer_iters, carry, segment)
-        return carry, op.energy(carry.state, cfg.g_floor)
+        fsq = None if feats is None else feats ** 2
+        carry = mirror_descent_segment(
+            _lr_step(op, mus, nus, fsq, cfg, controls.lr_gamma),
+            coupling_delta, controls, cfg.outer_iters, carry, segment)
+        return carry, _lr_value(op, carry.state, fsq, cfg)
     op = GradientOperator(geoms_x, geoms_y, cfg.backend)
     c1, dx2_mu, dy2_nu = op.constant_term(mus, nus)
-    carry = gw_plan_segment(op, c1, mus, nus, cfg, controls, carry, segment)
-    return carry, op.energy(carry.state.plan, dx2_mu, dy2_nu)
+    if feats is None:
+        carry = gw_plan_segment(op, c1, mus, nus, cfg, controls, carry,
+                                segment)
+        return carry, op.energy(carry.state.plan, dx2_mu, dy2_nu)
+    c2 = (1.0 - cfg.theta) * feats ** 2 + cfg.theta * c1
+    carry = mirror_descent_segment(
+        fgw.fgw_step_fn(op, c2, cfg.theta, mus, nus, cfg), coupling_delta,
+        controls, cfg.outer_iters, carry, segment)
+    return carry, fgw.fgw_full_value(op, feats, carry.state.plan, cfg.theta)
+
+
+# ---------------------------------------------------------------------------
+# the implicit-differentiation spec: a stack's inputs are
+# (geoms_x, geoms_y, mus, nus, feats, state0), lane-leading
+# ---------------------------------------------------------------------------
+
+def _implicit_solve(cfg: GWConfig, inputs, controls):
+    """`ImplicitSpec.solve`: the forward solve of every lane, any backend,
+    and its value (`_segment_stacked` from a cold or given start)."""
+    gx, gy, mus, nus, feats, state0 = inputs
+    carry, values = _segment_stacked(
+        gx, gy, mus, nus, feats, controls,
+        _init_stacked(gx, gy, mus, nus, cfg, state0), cfg)
+    return carry.state, info_of(carry), values
+
+
+def _implicit_step(cfg: GWConfig, state, inputs, controls):
+    """`ImplicitSpec.step`: ONE differentiable mirror step T̃ at the
+    converged state, plain PyTorch, at the target ε.
+
+    Full plan: the linearized cost at the plan, ``implicit_inner_steps``
+    warm-started dual-update pairs, the plan reassembled.  Factored plan:
+    the LR gradients (plain route), the prox kernels and
+    ``implicit_lr_sweeps`` Dykstra sweeps, everything (N, r)-sized for GW;
+    T̃ is the DOUBLE mirror step: the factored solver converges to a
+    period-2 orbit in factor space (the plan is fixed, but Dykstra's
+    zero-dual restart flips (Q, R, g) between two gauge representatives),
+    so only T̃² has a fixed point to linearize."""
+    from repro_torch.core import fgw
+    gx, gy, mus, nus, feats, _ = inputs
+    eps = controls.eps
+    if cfg.plan == "lowrank":
+        op = LowRankGradientOperator(gx, gy, cfg.backend, cfg.cost_rank,
+                                     "torch")
+        dx2, dy2 = op.constant_term(mus, nus)
+        fsq = None if feats is None else feats ** 2
+
+        def half(st):
+            if fsq is None:
+                grads = op.grads(st, dx2, dy2, cfg.g_floor)
+            else:
+                grads = fgw.fgw_lr_grads(op, st, dx2, dy2, fsq, cfg.theta,
+                                         cfg.g_floor)
+            return LowRankCoupling(*sk.lr_mirror_step_diff(
+                st.q, st.r, st.g, *grads, mus, nus, eps, controls.lr_gamma,
+                cfg.implicit_lr_sweeps, cfg.g_floor))
+
+        return half(half(state))
+    op = GradientOperator(gx, gy, cfg.backend)
+    c1, _, _ = op.constant_term(mus, nus)
+    if feats is None:
+        cost = op.grad(state.plan, c1)
+    else:
+        th = cfg.theta
+        cost = ((1.0 - th) * feats ** 2 + th * c1
+                - 4.0 * th * op.product(state.plan))
+    f, g = sk.sinkhorn_step_diff(cost, mus, nus, eps, state.f, state.g,
+                                 cfg.implicit_inner_steps)
+    e3 = sk._as_eps(eps, mus)[:, None, None]
+    return FullCoupling(torch.exp((f[:, :, None] + g[:, None, :] - cost)
+                                  / e3), f, g)
+
+
+def _implicit_value_bwd(cfg: GWConfig, state, inputs, controls):
+    """`ImplicitSpec.value_bwd`: the objective at the plan's OWN marginals
+    (E(Γ) depends on μ, ν only through the constraint, which the implicit
+    term owns), on the plain factored route."""
+    from repro_torch.core import fgw
+    gx, gy, _, _, feats, _ = inputs
+    if cfg.plan == "lowrank":
+        return _lr_value(LowRankGradientOperator(
+            gx, gy, cfg.backend, cfg.cost_rank, "torch"), state,
+            None if feats is None else feats ** 2, cfg)
+    op = GradientOperator(gx, gy, cfg.backend)
+    if feats is None:
+        return op.energy(state.plan)
+    return fgw.fgw_full_value(op, feats, state.plan, cfg.theta)
+
+
+def implicit_spec(cfg: GWConfig) -> ImplicitSpec:
+    """The `ImplicitSpec` of a GW/FGW config."""
+    return ImplicitSpec(solve=functools.partial(_implicit_solve, cfg),
+                        step=functools.partial(_implicit_step, cfg),
+                        value_bwd=functools.partial(_implicit_value_bwd,
+                                                    cfg),
+                        grad_mode=cfg.grad_mode,
+                        solve_iters=cfg.implicit_solve_iters,
+                        solve_tol=cfg.implicit_solve_tol)
+
+
+def _solve_stacked(ops, state0, cfg: GWConfig, gxs, gys,
+                   k: int) -> list[GWResult]:
+    """A stack's one-shot solve: one `fixed_point_value` call for every
+    lane, then the first ``k`` lanes sliced back to their sizes."""
+    inputs = ops[:5] + (state0,)
+    if _requires_grad(inputs, ops[5]) and any(
+            getattr(g, "backend", None) == "kernel" for g in ops[:2]):
+        raise NotImplementedError(
+            "cannot differentiate through the FGC kernel backend (a grid "
+            "on backend='kernel'): its scan has no backward, as the "
+            "reference's Pallas scan has none (jax.grad raises "
+            "AssertionError there).  Solve with backend='cumsum'; the "
+            "Sinkhorn and factored-plan kernels differentiate")
+    value, state, info = fixed_point_value(implicit_spec(cfg), inputs,
+                                           ops[5])
+    return _unpack_results(info, state, value, gxs, gys, k)
 
 
 def _pad_to(vec, size: int):
@@ -473,7 +658,7 @@ def stack_controls(controls, cfg: GWConfig, n: int,
         torch.stack([torch.as_tensor(v, dtype=torch.float64,
                                      device=device).reshape(())
                      for v in vals])
-        for vals in zip(*(dataclasses.astuple(c) for c in ctls))))
+        for vals in zip(*(fields_of(c) for c in ctls))))
 
 
 def _unpack_results(info: ConvergenceInfo, coupling: Coupling, values,
@@ -483,13 +668,40 @@ def _unpack_results(info: ConvergenceInfo, coupling: Coupling, values,
                        values[i], info.lane(i)) for i in range(k)]
 
 
+def _stack_features(features, problems, gxs, gys, m: int, n: int, device):
+    """Stack per-problem FGW feature costs on ``device``, zero-padded to
+    the bucket shape: padded rows and columns meet zero-mass atoms, whose
+    plan (factor) entries are exactly 0.  None (a GW batch) passes
+    through; a mixed batch is an error."""
+    if features is None or all(f is None for f in features):
+        return None
+    if any(f is None for f in features):
+        raise ValueError(
+            "mixed GW/FGW batches are not supported: features must be all "
+            "None or all arrays (serve them as separate buckets)")
+    if len(features) != len(problems):
+        raise ValueError(
+            f"{len(features)} features for {len(problems)} problems")
+    feats = []
+    for f, gx, gy in zip(features, gxs, gys):
+        f = as_tensor(f, device)
+        if tuple(f.shape) != (gx.size, gy.size):
+            raise ValueError(
+                f"feature cost shape {tuple(f.shape)} != problem sizes "
+                f"({gx.size}, {gy.size})")
+        feats.append(torch.nn.functional.pad(
+            f, (0, n - f.shape[1], 0, m - f.shape[0])))
+    return stack_lanes(feats)
+
+
 def stack_problems(problems: Sequence[tuple], cfg: GWConfig,
                    pad_to: tuple[int, int] | None = None, controls=None,
-                   device=None):
+                   device=None, features=None):
     """Pad + stack a problem list into the batch's operands
-    ``(geoms_x, geoms_y, mus, nus, controls)``, plus the adapted
-    per-problem geometries (for slicing results back).  Measures are moved
-    to ``device`` (default: the card)."""
+    ``(geoms_x, geoms_y, mus, nus, feats, controls)``, plus the adapted
+    per-problem geometries (for slicing results back).  Measures and
+    feature costs are moved to ``device`` (default: the card); ``feats`` is
+    None for a GW batch (see `_stack_features`)."""
     dev = resolve_device(device)
     gxs = [as_geometry(p[0], cfg.backend) for p in problems]
     gys = [as_geometry(p[1], cfg.backend) for p in problems]
@@ -504,8 +716,10 @@ def stack_problems(problems: Sequence[tuple], cfg: GWConfig,
                                pad_to and pad_to[0])
     geoms_y, nus = _stack_side(gys, [as_tensor(p[3], dev) for p in problems],
                                pad_to and pad_to[1])
+    feats = _stack_features(features, problems, gxs, gys, mus.shape[1],
+                            nus.shape[1], dev)
     ctls = stack_controls(controls, cfg, len(problems), dev)
-    return (geoms_x, geoms_y, mus, nus, ctls), gxs, gys
+    return (geoms_x, geoms_y, mus, nus, feats, ctls), gxs, gys
 
 
 def entropic_gw_batch(problems: Sequence[tuple], cfg: GWConfig = GWConfig(),
@@ -535,25 +749,39 @@ def entropic_gw_batch(problems: Sequence[tuple], cfg: GWConfig = GWConfig(),
     ``num_results`` unpacks only the first so many.  ``controls`` gives
     every problem its own knobs (see `stack_controls`).
 
+    ``features`` optionally gives every problem an FGW feature-cost matrix
+    of shape ``(geom_x.size, geom_y.size)``; ``cfg`` must then be an
+    `repro_torch.core.fgw.FGWConfig` (its ``theta`` weights the feature
+    term).  All-None and all-array are the two supported shapes.
+
     Segmented mode: with ``max_outer_segment=k`` every lane advances at
     most ``k`` outer steps and the call returns ``(results,
     resume_state)``; passing ``resume_state`` back with the same problems
     continues the solve, bit for bit as an uninterrupted one.
-    ``resume_state`` alone runs the remaining steps to completion.
-
-    ``features`` (FGW feature costs) are not ported yet (ROADMAP A9).
+    ``resume_state`` alone runs the remaining steps to completion.  A
+    segmented solve is not differentiable; a one-shot one is, all lanes
+    through one `fixed_point_value` call, each lane's gradient its solo
+    solve's.
     """
-    if features is not None:
-        raise NotImplementedError(
-            "features= (FGW feature costs) is not ported yet: ROADMAP A9")
     segmented = (resume_state is not None) or (max_outer_segment is not None)
     if not problems:
         return ([], None) if segmented else []
-    ops, gxs, gys = stack_problems(problems, cfg, pad_to, controls, device)
+    if (features is not None and any(f is not None for f in features)
+            and not hasattr(cfg, "theta")):
+        raise ValueError(
+            "features given but cfg has no feature weight: pass an "
+            "FGWConfig (with theta) instead of a GWConfig")
+    ops, gxs, gys = stack_problems(problems, cfg, pad_to, controls, device,
+                                   features)
     k = len(problems) if num_results is None else num_results
+    if not segmented:
+        return _solve_stacked(ops, None, cfg, gxs, gys, k)
+    if _requires_grad(ops):
+        raise ValueError(
+            "segmented solves (max_outer_segment, resume_state) are not "
+            "differentiable: solve in one call to differentiate")
     carry = resume_state if resume_state is not None \
         else _init_stacked(*ops[:4], cfg)
     carry, values = _segment_stacked(*ops, carry, cfg, max_outer_segment)
-    results = _unpack_results(info_of(carry), carry.state, values, gxs, gys,
-                              k)
-    return (results, carry) if segmented else results
+    return _unpack_results(info_of(carry), carry.state, values, gxs, gys,
+                           k), carry

@@ -1,9 +1,10 @@
 """Balanced Sinkhorn solvers for the entropic-OT subproblem of each
 mirror-descent step.
 
-Reference: ``repro/core/sinkhorn.py`` (balanced log and kernel modes, and
-the factored plan's log-domain Dykstra projection and mirror step; the
-unbalanced and differentiable one-step maps belong to later slices).
+Reference: ``repro/core/sinkhorn.py`` (balanced log and kernel modes, the
+factored plan's log-domain Dykstra projection and mirror step, and the
+differentiable one-step maps `sinkhorn_step_diff` and
+`lr_mirror_step_diff`; the unbalanced modes belong to a later slice).
 
 Conventions: plan γ_ip = exp((f_i + g_p − C_ip)/ε); marginals Σ_p γ = μ,
 Σ_i γ = ν.  Log mode is the default (the paper's ε = 0.002 underflows the
@@ -21,6 +22,13 @@ half-step through the hand-written CUDA kernels (one pass over C per
 half-step, ε read from device memory), ``"torch"`` the plain PyTorch
 expressions, ``"auto"`` the kernels on a CUDA device and the plain
 expressions on the CPU.
+
+Reverse-mode differentiation never runs these loops backwards: the
+implicit surface (`repro_torch.core.solver.fixed_point_value`) linearizes
+ONE differentiable application of the dual update at the converged state.
+`sinkhorn_step_diff` (full plan) and `lr_mirror_step_diff` (factored plan)
+are those one-step maps: plain PyTorch ops, with zero-mass-safe logs and
+logsumexps so padded atoms get exact-zero cotangents instead of NaN.
 """
 from __future__ import annotations
 
@@ -42,16 +50,21 @@ class SinkhornConfig:
 
 
 def _safe_log(w):
-    """log with −inf at zero mass."""
+    """log with −inf at zero mass AND a zero (not NaN) gradient there: the
+    inner where keeps log(0) out of the graph."""
     return torch.where(w > 0, torch.log(torch.where(w > 0, w,
                                                     torch.ones_like(w))),
                        torch.full_like(w, -torch.inf))
 
 
 def safe_logsumexp(z, dim=-1):
-    """logsumexp that masks dead (−inf) entries before exponentiating;
-    values match the standard implementation, −inf on all −inf slices."""
-    m = torch.amax(z, dim=dim, keepdim=True)
+    """logsumexp whose gradient is exact-zero on all-(−inf) slices (the
+    standard one's is 0/0 = NaN there, and a NaN survives a zero
+    cotangent).  The max shift is detached, as the reference's
+    ``stop_gradient``; dead (−inf) entries are masked before
+    exponentiating.  Values match the standard implementation, −inf on
+    all −inf slices."""
+    m = torch.amax(z, dim=dim, keepdim=True).detach()
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     live = z > -torch.inf
     e = torch.where(live, torch.exp(torch.where(live, z,
@@ -329,7 +342,8 @@ def solve_adaptive(cost, mu, nu, eps, iters: int, chunk: int, tol,
 # ---------------------------------------------------------------------------
 
 def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
-                       backend: str = "torch", cost_dtype: str = "f32"):
+                       backend: str = "torch", cost_dtype: str = "f32",
+                       lse=sinkhorn_step._lse):
     """state0, sweep, residual for the log-domain Dykstra projection, over
     lanes: lk (B, N, r), lk_g (B, r), measures (B, ·).
 
@@ -341,6 +355,11 @@ def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
     ``"torch"`` runs the same function as the kernel's plain version, the
     reference's XLA expressions.  The (r,)-sized dual algebra and the
     residual are plain PyTorch under either backend.
+
+    ``lse`` is the logsumexp of the plain sweep: the forward solvers keep
+    the kernel's plain version's, the differentiable one-step map passes
+    `safe_logsumexp` (a padded atom's log-kernel row is all −inf, whose
+    standard-logsumexp gradient is NaN).
     """
     ft = mu.dtype
     log_mu = _safe_log(mu)
@@ -362,8 +381,8 @@ def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
             return f1, f2, cq, cr
     else:
         def block1(g1, g2):
-            f1, cq = lr_step.dykstra_half_plain(lk_q, g1, log_mu)
-            f2, cr = lr_step.dykstra_half_plain(lk_r, g2, log_nu)
+            f1, cq = lr_step.dykstra_half_plain(lk_q, g1, log_mu, lse)
+            f2, cr = lr_step.dykstra_half_plain(lk_r, g2, log_nu, lse)
             return f1, f2, cq, cr
 
     def sweep(s):
@@ -479,3 +498,46 @@ def lr_mirror_step(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma,
     out = lr_dykstra_log(lk_q, lk_r, lk_g, mu, nu, iters, chunk, tol,
                          log_floor, backend, cost_dtype)
     return _drop(solo, *out[:4]) + (out[4][0] if solo else out[4],)
+
+
+def lr_mirror_step_diff(q, r, g, grad_q, grad_r, grad_g, mu, nu, eps, gamma,
+                        sweeps: int, g_floor: float):
+    """One DIFFERENTIABLE factored mirror step over lanes: the prox kernels
+    of `lr_mirror_step` projected by a fixed number of plain Dykstra
+    ``sweeps`` from zero duals, every logsumexp the zero-mass-safe one.
+
+    The factored plan's T̃ for the implicit surface: not idempotent at the
+    solution (Dykstra re-walks its corrections from scratch), but its fixed
+    points are the solver's, which is all the implicit function theorem
+    needs.  Everything is (N, r)-sized.  Returns (q, r, g)."""
+    lk_q, lk_r, lk_g = _lr_prox_kernels(q, r, g, grad_q, grad_r, grad_g,
+                                        mu, nu, eps, gamma)
+    log_floor = torch.log(torch.tensor(g_floor, dtype=mu.dtype,
+                                       device=mu.device))
+    s, sweep, _ = _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
+                                     "torch", lse=safe_logsumexp)
+    for _ in range(sweeps):
+        s = sweep(s)
+    f1, f2, g1, g2, h = s[0], s[1], s[2], s[3], s[4]
+    return (torch.exp(lk_q + f1[:, :, None] + g1[:, None, :]),
+            torch.exp(lk_r + f2[:, :, None] + g2[:, None, :]), torch.exp(h))
+
+
+def sinkhorn_step_diff(cost, mu, nu, eps, f, g, pairs: int = 1):
+    """``pairs`` DIFFERENTIABLE log-domain dual-update pairs over lanes
+    (cost (B, M, N), ε (B,)), warm-started at (f, g): the full plan's T̃
+    for the implicit surface.  At converged potentials one pair is
+    (approximately) idempotent.  Zero-mass atoms pin to −inf with
+    exact-zero gradients.  Returns (f, g)."""
+    e2 = _as_eps(eps, mu)[:, None]
+    e3 = e2[:, :, None]
+    log_mu, log_nu = _safe_log(mu), _safe_log(nu)
+    zero_mu, zero_nu = mu <= 0, nu <= 0
+    neg_inf = torch.full((), -torch.inf, dtype=mu.dtype, device=mu.device)
+    for _ in range(pairs):
+        gm = torch.where(zero_nu, neg_inf, g)
+        f = torch.where(zero_mu, neg_inf, e2 * (log_mu - safe_logsumexp(
+            (gm[:, None, :] - cost) / e3, dim=2)))
+        g = torch.where(zero_nu, neg_inf, e2 * (log_nu - safe_logsumexp(
+            (f[:, :, None] - cost) / e3, dim=1)))
+    return f, g

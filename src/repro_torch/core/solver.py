@@ -1,9 +1,10 @@
-"""Convergence-controlled mirror-descent loop (forward).
+"""Convergence-controlled mirror-descent loop, and the implicit
+differentiation surface around it.
 
 Reference: ``repro/core/solver.py`` (``SolveControls``, ``ConvergenceInfo``,
 ``MirrorCarry``, ``init_carry``, ``info_of``, ``resolve_controls``,
-``mirror_descent_segment`` and ``mirror_descent``; the implicit
-differentiation surface belongs to a later slice).
+``plan_delta``, ``mirror_descent_segment``, ``mirror_descent``,
+``ImplicitSpec`` and ``fixed_point_value``).
 
 The reference's ``lax.while_loop`` is a host loop here, over B lanes at
 once (a single problem is one lane): every outer step runs on every lane,
@@ -31,12 +32,23 @@ and a lane that has converged or reached its segment's end keeps its state
 The value knobs live in ``SolveControls`` as float64 tensors, 0-d for one
 problem or (B,) for B lanes.  Counters are host integers (tuples of them
 for lanes): the host runs the loop.
+
+Reverse-mode differentiation is not a loop mode: `fixed_point_value` wraps
+a solve in a `torch.autograd.Function` whose backward pass is built from
+the converged state alone — the envelope gradient of the objective plus
+an implicit (fixed-point) correction from ONE differentiable mirror step
+at the solution.  The forward may run any backend, kernels included; the
+backward replays only the one-step map, so its memory is O(1) in the
+iteration counts.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from typing import Callable
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _CTL = torch.float64
 
@@ -81,7 +93,7 @@ class SolveControls:
         dev = self.eps.device
         rows = torch.stack([torch.as_tensor(v, dtype=_CTL, device=dev)
                             .reshape(-1).expand(lanes)
-                            for v in dataclasses.astuple(self)]).tolist()
+                            for v in fields_of(self)]).tolist()
         return [SolveControls(*(row[b] for row in rows))
                 for b in range(lanes)]
 
@@ -194,6 +206,18 @@ def resolve_controls(cfg, controls: SolveControls | None = None,
         else controls
 
 
+def fields_of(obj) -> tuple:
+    """A dataclass's field values, shallow: ``dataclasses.astuple`` deep
+    copies every tensor (and refuses one inside an autograd graph)."""
+    return tuple(getattr(obj, f.name) for f in dataclasses.fields(obj))
+
+
+def plan_delta(new_state, old_state):
+    """L1 change of the transport plan between outer steps, for states whose
+    first element is the plan (one value a lane for lane-leading plans)."""
+    return (new_state[0] - old_state[0]).abs().sum(dim=(-2, -1))
+
+
 def _lift_carry(carry: MirrorCarry) -> MirrorCarry:
     """One problem's carry as a batch of one."""
     st = carry.state
@@ -284,3 +308,193 @@ def mirror_descent(step_fn, state0, delta_fn, controls: SolveControls,
         step_fn, delta_fn, controls, outer_cap,
         init_carry(state0, outer_cap, controls.eps.device, lanes))
     return carry.state, info_of(carry)
+
+
+# ---------------------------------------------------------------------------
+# The implicit-differentiation surface.
+#
+# By the envelope / Danskin argument the derivative of the entropic value
+# depends only on the converged plan, and the residual sensitivity comes
+# from the implicit function theorem at the mirror-descent fixed point
+# s* = T(s*, θ).  For any downstream F(s*, θ),
+#
+#   dF/dθ = ∂θF + (∂θT)ᵀ u,     u = (I − ∂sTᵀ)⁻¹ w,     w = ∂sF-cotangent,
+#
+# with u the Neumann series Σₖ (∂sTᵀ)ᵏ w: each term is one VJP of the
+# one-step map at the converged state.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitSpec:
+    """One differentiable fixed-point problem, as callables over a batch's
+    lane-leading ``inputs`` (a tuple of tensors, geometries and None) and
+    ``controls``:
+
+    - ``solve(inputs, controls) -> (state, info, value)``: the full solve,
+      any backend, kernels included, and its (B,) objective (the reference
+      splits the value into a ``value`` callable; one call here lets the
+      forward reuse its constant term, as XLA's common-subexpression pass
+      lets the reference's).  Run without a graph.
+    - ``step(state, inputs, controls) -> state``: ONE differentiable
+      application of the fixed-point map T̃ (plain PyTorch ops),
+      (approximately) idempotent at a converged state.
+    - ``value_bwd(state, inputs, controls) -> (B,)``: the gradient-correct
+      objective the backward pass differentiates.
+    - ``grad_mode``: ``"implicit"`` (envelope + Neumann correction) or
+      ``"envelope"`` (the Danskin term only).
+    - ``solve_iters`` / ``solve_tol``: the Neumann series' cap and its
+      per-lane stop on the L1 norm of the latest term.
+    """
+
+    solve: Callable
+    step: Callable
+    value_bwd: Callable
+    grad_mode: str = "implicit"
+    solve_iters: int = 30
+    solve_tol: float = 1e-10
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a tree of tuples and dataclasses, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in tensor_leaves(x)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree)
+                for t in tensor_leaves(getattr(tree, f.name))]
+    return []
+
+
+class _Slot:
+    """Where a tensor was, in a `_skeleton`."""
+
+
+def with_leaves(tree, leaves):
+    """``tree`` with its tensors (or a skeleton's slots) replaced, in
+    `tensor_leaves` order, by the items of the iterator ``leaves``."""
+    if isinstance(tree, (torch.Tensor, _Slot)):
+        return next(leaves)
+    if isinstance(tree, tuple):
+        return tuple(with_leaves(x, leaves) for x in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: with_leaves(getattr(tree, f.name), leaves)
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _skeleton(tree):
+    """``tree`` with a slot in place of each tensor: what a backward pass
+    keeps to rebuild it from saved tensors, without holding them."""
+    return with_leaves(tree, itertools.repeat(_Slot()))
+
+
+def _lane_l1(ts):
+    """Each lane's L1 mass over lane-leading tensors."""
+    return sum(t.abs().reshape(t.shape[0], -1).sum(dim=1) for t in ts)
+
+
+def neumann_series(vjp, w, iters: int, tol: float):
+    """u = Σₖ (∂sT̃ᵀ)ᵏ w over lanes, with ``vjp(term)`` one application of
+    ∂sT̃ᵀ to a list of lane-leading tensors.  A lane stops, keeping its
+    term and sum, once its term's L1 mass is ≤ ``tol`` or after ``iters``
+    terms, as the reference's vmapped while_loop masks it; so a lane's
+    series is the one it has alone.  Returns (u, terms per lane)."""
+    term, acc = list(w), list(w)
+    live = _lane_l1(term) > tol
+    terms = torch.zeros_like(live, dtype=torch.int64)
+    for _ in range(iters):
+        if not bool(live.any()):
+            break
+        new = vjp(term)
+
+        def keep(n, o):
+            return torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)),
+                               n, o)
+        acc = [keep(a + n, a) for a, n in zip(acc, new)]
+        term = [keep(n, t) for n, t in zip(new, term)]
+        terms += live
+        live = live & (_lane_l1(term) > tol)
+    return acc, terms.tolist()
+
+
+def _grads(outs, wrt, cts, retain: bool = False):
+    """torch.autograd.grad with zeros where an input is unused."""
+    got = torch.autograd.grad(outs, wrt, cts, retain_graph=retain,
+                              allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(got, wrt)]
+
+
+class _FixedPoint(torch.autograd.Function):
+    """`fixed_point_value` with inputs that require grad.  ``leaves`` are
+    the tensors of ``(inputs, controls)`` (autograd follows top-level
+    tensor arguments only); ``tree`` rebuilds them.  Returns the value,
+    the state's tensors and the info's tensors (not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, spec, tree, out, *leaves):
+        inputs, controls = with_leaves(tree, iter(leaves))
+        state, info, value = spec.solve(inputs, controls)
+        states, infos = tensor_leaves(state), tensor_leaves(info)
+        out["state"], out["info"] = _skeleton(state), _skeleton(info)
+        ctx.spec, ctx.tree, ctx.state = spec, tree, out["state"]
+        ctx.save_for_backward(*leaves, *states)
+        ctx.mark_non_differentiable(*infos)
+        return (value, *states, *infos)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_value, *cts):
+        spec = ctx.spec
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        n_in = len(need)
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(nd)
+                  for t, nd in zip(saved[:n_in], need)]
+            ss = [t.detach().requires_grad_() for t in saved[n_in:]]
+            inputs, controls = with_leaves(ctx.tree, iter(xs))
+            state = with_leaves(ctx.state, iter(ss))
+            wrt = [x for x in xs if x.requires_grad]
+            dv = _grads(spec.value_bwd(state, inputs, controls), ss + wrt,
+                        ct_value)
+            dv_s, dv_x = dv[:len(ss)], dv[len(ss):]
+            if spec.grad_mode == "implicit":
+                # the cotangent entering the fixed point: the value's plus
+                # any direct one on the returned state (a loss reading the
+                # plan); one graph of T̃ serves every term
+                w = [a + b for a, b in zip(dv_s, cts[:len(ss)])]
+                outs = tensor_leaves(spec.step(state, inputs, controls))
+                u, _ = neumann_series(
+                    lambda term: _grads(outs, ss, term, retain=True), w,
+                    spec.solve_iters, spec.solve_tol)
+                dv_x = [a + b for a, b in zip(dv_x, _grads(outs, wrt, u))]
+        grads = iter(dv_x)
+        return (None, None, None) + tuple(next(grads) if nd else None
+                                          for nd in need)
+
+
+def fixed_point_value(spec: ImplicitSpec, inputs, controls):
+    """Solve the fixed point described by ``spec`` and return ``(value,
+    state, info)``, reverse-mode differentiable in the tensors of
+    ``inputs`` and ``controls`` through the implicit backward pass,
+    whatever backend ``spec.solve`` runs.
+
+    When no input requires grad (or grad mode is off) this is exactly
+    ``spec.solve``; with one, the same call runs inside a
+    `torch.autograd.Function` without a graph, and gives the same bits.
+    """
+    leaves = tensor_leaves((inputs, controls))
+    if not (torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in leaves)):
+        state, info, value = spec.solve(inputs, controls)
+        return value, state, info
+    out = {}
+    res = _FixedPoint.apply(spec, _skeleton((inputs, controls)), out,
+                            *leaves)
+    rest = iter(res[1:])
+    state = with_leaves(out["state"], rest)
+    return res[0], state, with_leaves(out["info"], rest)

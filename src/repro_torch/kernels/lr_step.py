@@ -86,15 +86,14 @@ COMBINE_THREADS = 256
 COMBINE_STAGE_BYTES = 8 * 1024
 
 
-def dykstra_half_plain(lk, gcol, logw):
+def dykstra_half_plain(lk, gcol, logw, lse=_lse):
     """f = log w − LSE_lanes(gcol ⊕ lk), −inf where log w = −inf, and
     col = LSE_rows(f ⊕ lk), over (B, N, r) lanes; lk may be bfloat16 (it is
-    widened to the duals' dtype)."""
+    widened to the duals' dtype).  ``lse(z, dim)`` is the logsumexp."""
     lk = lk.to(gcol.dtype)
-    lse = _lse(gcol[:, None, :] + lk, 2)
-    f = torch.where(logw > -torch.inf, logw - lse,
+    f = torch.where(logw > -torch.inf, logw - lse(gcol[:, None, :] + lk, 2),
                     torch.full_like(logw, -torch.inf))
-    return f, _lse(f[:, :, None] + lk, 1)
+    return f, lse(f[:, :, None] + lk, 1)
 
 
 def gram_chain_plain(a, b, q, w):

@@ -179,7 +179,8 @@ def test_batch_rejects_malformed_measure():
 
 def test_batch_refuses_what_is_not_ported():
     tp, _ = _grids([(10, 12)])
-    with pytest.raises(NotImplementedError, match="A9"):
+    # features need an FGWConfig (its theta), as the reference's
+    with pytest.raises(ValueError, match="FGWConfig"):
         _batch(tp, core.GWConfig(**CFG), features=[np.ones((10, 12))])
     with pytest.raises(ValueError, match="plan_rank='auto'"):
         _batch(tp, core.GWConfig(plan="lowrank", plan_rank="auto"))

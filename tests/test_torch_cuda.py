@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions.
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+the implicit gradients of solves whose forward runs them.
 
 These need an NVIDIA card with ``nvcc`` (the kernels build at first use) and
 carry the ``cuda`` marker; without a card they skip.  The file imports
@@ -1070,3 +1071,86 @@ def test_controls_build_nothing(dev):
                        inner_loosen=0.0)):
         entropic_gw(grid, grid, mu, nu, GWConfig(backend="kernel", **knobs))
     assert sorted(p.name for p in build.build_dir().iterdir()) == before
+
+
+# ---------------------------------------------------------------------------
+# reverse mode: the implicit backward pass behind a kernel forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plan", ["full", "lowrank"])
+def test_implicit_grad_through_kernels_matches_torch(dev, plan):
+    """The gradient of a solve whose forward ran the kernels (B1/B2, or
+    B5–B7 on factor pairs) equals the one whose forward ran the plain
+    route: the backward is the same plain one-step map, at states that
+    differ by rounding (f64, rtol 1e-8)."""
+    m, n = 300, 260
+    mu, nu = _measures_np(m, 3), _measures_np(n, 4)
+    # 1-D clouds, whose exact factors (rank 3) make the factored solve
+    # run B6/B7; it converges at step 18 (on random 3-D clouds it does not
+    # converge, and an unconverged state's gradient is no yardstick)
+    px = (np.arange(m) / (m - 1))[:, None]
+    py = (np.arange(n) / (n - 1))[:, None]
+    grads = []
+    for route in ("auto", "torch"):
+        ops.reset_launch_counts()
+        mu_t = torch.tensor(mu, device=dev, requires_grad=True)
+        if plan == "full":
+            h = torch.tensor(1 / (m - 1), dtype=torch.float64, device=dev,
+                             requires_grad=True)
+            gx, gy, wrt = Grid1D(m, h, 1), Grid1D(n, 1 / (n - 1), 1), h
+            cfg = GWConfig(eps=5e-2, tol=1e-10, outer_iters=60,
+                           sinkhorn_iters=1000, sinkhorn_backend=route)
+        else:
+            pts = torch.tensor(px, device=dev, requires_grad=True)
+            gx, wrt = PointCloudGeometry(pts), pts
+            gy = PointCloudGeometry(torch.tensor(py, device=dev))
+            cfg = GWConfig(eps=5e-2, tol=1e-10, outer_iters=100,
+                           sinkhorn_iters=400, plan="lowrank", plan_rank=6,
+                           lr_gamma=5.0, lowrank_backend=route)
+        res = entropic_gw(gx, gy, mu_t, nu, cfg)
+        assert res.info.converged
+        launched = sum(ops.LAUNCHES.values())
+        assert (launched > 0) == (route == "auto")
+        grads.append(torch.autograd.grad(res.value, (wrt, mu_t)))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12)
+
+
+def test_ragged_batch_with_zero_mass_backpropagates_without_nan(dev):
+    """Five ragged FGW lanes on the kernels, padded, one with zero-mass
+    atoms of its own: finite gradients everywhere, exact zeros on the
+    zero-mass rows of its feature cost."""
+    from repro_torch.core import FGWConfig, entropic_gw_batch
+    rng = np.random.default_rng(48)
+    sizes = [(120, 150), (150, 100), (90, 90), (140, 130), (100, 110)]
+    probs, feats = [], []
+    for i, (m, n) in enumerate(sizes):
+        mu = _measures_np(m, 10 + i)
+        if i == 2:
+            mu[-20:] = 0.0
+            mu /= mu.sum()
+        probs.append((Grid1D(m, 1 / (m - 1), 1), Grid1D(n, 1 / (n - 1), 1),
+                      torch.tensor(mu, device=dev, requires_grad=True),
+                      _measures_np(n, 20 + i)))
+        feats.append(torch.tensor(rng.random((m, n)), device=dev,
+                                  requires_grad=True))
+    cfg = FGWConfig(eps=5e-2, tol=1e-8, outer_iters=30, sinkhorn_iters=300,
+                    theta=0.5)
+    out = entropic_gw_batch(probs, cfg, pad_to=(160, 160), features=feats)
+    wrt = feats + [p[2] for p in probs]
+    grads = torch.autograd.grad(sum(r.value for r in out), wrt)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert float(grads[2][-20:].abs().max()) == 0.0
+    assert float(grads[2][:-20].abs().max()) > 0.0
+
+
+def test_kernel_fgc_backend_refuses_grad(dev):
+    """The FGC scan kernels have no backward (as the reference's Pallas
+    scan has no transpose): asking for a gradient through them raises."""
+    h = torch.tensor(1 / 99, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    mu = _measures_np(100, 5)
+    with pytest.raises(NotImplementedError, match="FGC kernel"):
+        entropic_gw(Grid1D(100, h, 1), Grid1D(100, 1 / 99, 1), mu, mu,
+                    GWConfig(backend="kernel", outer_iters=2))

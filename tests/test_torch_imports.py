@@ -29,4 +29,4 @@ def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "gw.py", "ops.py", "sinkhorn_step.py",
             "fgc_scan.py", "lr_step.py", "convert.py",
-            "half_step_times.py"} <= names
+            "half_step_times.py", "fgw.py", "losses.py"} <= names
