@@ -63,7 +63,22 @@ result line:
    the padded feature rows) and Run J (the gradient to one 10⁵-point
    cloud of a rank-16 factored solve, under a memory budget).  Each prints
    its forward and backward walls, the Neumann terms of each lane and the
-   peak device memory; no backward launches a kernel.
+   peak device memory; no backward launches a kernel.  Then the variants,
+   each against its plain route with the launches checked against the
+   code's formulas: Run K (``entropic_ugw`` on ``Grid1D(8192)``, f64,
+   fixed and adaptive; B3 in its cost and value, profiled over two
+   steps), Run L (``entropic_coot`` on data of MNIST → USPS's shapes,
+   8192 × 784 and 8192 × 256, f64 and f32, profiled once, and its GW
+   specialization on ``Grid1D(4096)`` through ``bilinear_product``'s B3,
+   beside the grid-less dense products), Run M (``gw_barycenter`` of four ``Grid1D``
+   inputs of 2048–4096 points on a 4096-point support, annealed, adaptive)
+   and Run N (sliced GW on two 10⁶-point clouds: the sorted method in f64
+   and f32 against the port's own CPU run and on a rotated, permuted
+   copy; ``sliced_plan`` on 8192 points and the warm start
+   ``FullCoupling.from_sliced`` gives a kernels solve, beside a cold one;
+   the grid method's 32 lanes of ``entropic_gw_batch`` on the dense and
+   the kernel FGC backends, kernels against plain lane by lane, against
+   the sorted estimate, and twice for equal bits, the binning too).
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -87,6 +102,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1829,6 +1845,427 @@ def phase_grad_path(torch, np, ops, core):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, variants: Runs K–N through UGW, COOT, the barycenter and sliced GW
+# ---------------------------------------------------------------------------
+
+#: Run K: unbalanced GW at Run A's width (ε, ρ: the reference's UGW tests,
+#: tests/test_gw_solvers.py:59, tests/test_solver.py:308), fixed and
+#: adaptive with annealing
+K_FIXED = dict(eps=1e-2, rho=1.0, outer_iters=10, sinkhorn_iters=200)
+K_ADAPTIVE = dict(eps=1e-2, rho=1.0, tol=1e-7, eps_init=1e-1,
+                  outer_iters=30, sinkhorn_iters=300)
+#: Run L: COOT at the shapes of MNIST → USPS (28² = 784 and 16² = 256
+#: pixels) on 8192 samples a side, and its GW specialization on Grid1D(4096)
+N_L, D_L, E_L, N_L_GRID = 8192, 784, 256, 4096
+L_CONTROLS = dict(eps_samples=1e-2, eps_features=1e-2, outer_iters=10,
+                  sinkhorn_iters=100)
+#: Run M: the barycenter of 4 Grid1D inputs on a 4096-point support
+M_SIZES, M_SUPPORT, M_WEIGHTS = (2048, 2560, 3072, 4096), 4096, \
+    (0.4, 0.3, 0.2, 0.1)
+M_CONTROLS = dict(eps=5e-3, outer_iters=5, gw_iters=5, sinkhorn_iters=100,
+                  tol=1e-6, eps_init=5e-2)
+#: Run N: sliced GW on two 10⁶-point clouds (Run C's scale), uniform in
+#: boxes of sides 1, 2, 3 (distinct principal axes) under a tilted,
+#: skewed marginal (a signed third moment on every axis); the grid method
+#: at the reference's `_sliced_grid` config
+N_N, P_N, N_N_PLAN, P_N_GRID, GRID_N = 1_000_000, 128, 8192, 32, 512
+N_AXES = (1.0, 2.0, 3.0)
+N_PLAN_SCALE = 0.125   # the plan run's clouds shrunk to O(1) costs
+N_GW_CONTROLS = dict(eps=5e-3, tol=1e-6, outer_iters=60, sinkhorn_iters=500)
+
+
+def box_cloud(np, n, seed, scale=1.0):
+    """n points uniform in a box of sides N_AXES (× scale), and their
+    tilted marginal w ∝ exp(½ Σ_a x_a / side_a): skewed along every axis."""
+    r = np.random.default_rng(seed)
+    axes = np.asarray(N_AXES)
+    pts = (r.random((n, 3)) - 0.5) * axes * scale
+    w = np.exp(0.5 * (pts / (axes * scale)).sum(axis=1))
+    return pts, w / w.sum()
+
+
+def coot_result(torch, pi_s, pi_v, value, info):
+    """COOT's output in the shape `compare_runs` reads: both plans as one
+    flat plan (so the L1 Δ is the solver's own movement metric)."""
+    return types.SimpleNamespace(
+        plan=torch.cat([pi_s.reshape(-1), pi_v.reshape(-1)]), value=value,
+        info=info)
+
+
+def run_k(torch, np, ops, core, add, walls):
+    """Run K: UGW on Grid1D(8192) both sides, kernels (B3) against plain,
+    fixed and adaptive, f64."""
+    n = N_BIG
+    grid = core.Grid1D(n, 1 / (n - 1), 1)
+    mu, nu = measures(np, n, SEED + 60), measures(np, n, SEED + 61)
+    for label, knobs in (("fixed", K_FIXED), ("adaptive", K_ADAPTIVE)):
+        res = {}
+        for route, backend in (("kernels", "kernel"), ("plain", "cumsum")):
+            cfg = core.UGWConfig(backend=backend, **knobs)
+            res[route], counts, walls[f"K {label} {route}"] = run_path(
+                torch, ops, f"Run K UGW Grid1D({n}) float64 {label} {route}",
+                lambda: core.entropic_ugw(grid, grid, mu, nu, cfg))
+            r = res[route]
+            say(f"  Run K {label} {route}: mass {float(r.plan.sum()):.15f}, "
+                f"value {float(r.value):.15e}, drift "
+                f"{float(r.marginal_err):.3e}, outer {r.info.outer_iters}, "
+                f"inner {r.info.inner_iters}, converged {r.info.converged}")
+            if route == "kernels":
+                add(counts)
+                # B3 a D̃ apply: the cost's two squared-distance applies and
+                # D_X Γ D_Y's two applies a step, and as many for the value
+                want = 4 * r.info.outer_iters + 4
+                say(f"  Run K {label}: fgc_apply_dtilde launches "
+                    f"{counts['fgc_apply_dtilde']}, expected {want}")
+                check(counts["fgc_apply_dtilde"] == want,
+                      f"Run K {label}: B3 launches differ from the code's")
+        compare_runs(torch, f"Run K {label}", res["kernels"], res["plain"],
+                     1e-8, 1e-6)
+        if label == "adaptive":
+            check(res["kernels"].info.converged,
+                  "Run K adaptive: the solve did not converge")
+        del res
+    # two of the fixed solve's ten steps: the profiler's own cost grows
+    # with the ~8000 device activities a step records
+    profile_solve(torch, "Run K fixed kernels, 2 outer steps",
+                  lambda: core.entropic_ugw(grid, grid, mu, nu,
+                                            core.UGWConfig(
+                                                backend="kernel",
+                                                **dict(K_FIXED,
+                                                       outer_iters=2))))
+
+
+def run_l(torch, np, ops, core, add, walls):
+    """Run L: COOT, (a) on data matrices of MNIST → USPS's shapes in f64
+    and f32, (b) its GW specialization on Grid1D(4096) through
+    bilinear_product's FGC apply; kernels (B1/B2, and B3 in (b)) against
+    plain."""
+    coot = core.coot
+    rng = np.random.default_rng(SEED + 70)
+    x_np = rng.random((N_L, D_L))
+    y_np = rng.random((N_L, E_L))
+    uni = [np.full(k, 1.0 / k) for k in (N_L, N_L, D_L, E_L)]
+    kern = coot.COOTConfig(sinkhorn_backend="auto", **L_CONTROLS)
+    plain = coot.COOTConfig(sinkhorn_backend="torch", **L_CONTROLS)
+
+    def solve(cfg, dt, **kw):
+        out = coot.entropic_coot(
+            torch.tensor(x_np, dtype=dt, device="cuda"),
+            torch.tensor(y_np, dtype=dt, device="cuda"),
+            *(torch.tensor(u, dtype=dt, device="cuda") for u in uni), cfg,
+            return_info=True, **kw)
+        return coot_result(torch, *out)
+
+    exact = None
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        rk, counts, walls[f"L(a) {name} kernels"] = run_path(
+            torch, ops, f"Run L(a) COOT X {N_L}x{D_L}, Y {N_L}x{E_L} {name} "
+            "kernels", lambda: solve(kern, dt))
+        add(counts)
+        want = rk.info.inner_iters
+        got = (counts["sinkhorn_row_update"], counts["sinkhorn_col_update"])
+        say(f"  Run L(a) {name}: B1/B2 launches {got}, expected {want} each "
+            f"(one a half-step of either half's inner iterations)")
+        check(got == (want, want) and counts["fgc_apply_dtilde"] == 0,
+              f"Run L(a) {name}: launch counts differ from the code's")
+        rp, _, walls[f"L(a) {name} plain"] = run_path(
+            torch, ops, f"Run L(a) {name} plain", lambda: solve(plain, dt))
+        if dt == torch.float64:
+            tols = (1e-8, 1e-6)
+            exact = (float(rk.value), rk.plan)
+        else:
+            rel32 = abs(float(rp.value) - exact[0]) / abs(exact[0])
+            l1_32 = float((rp.plan.double() - exact[1]).abs().sum())
+            say(f"  Run L(a) float32 plain vs float64 kernels: relative Δ "
+                f"value {rel32:.3e}, plans L1 Δ {l1_32:.3e}")
+            tols = (max(1e-4, 4 * rel32), max(1e-3, 4 * l1_32))
+        compare_runs(torch, f"Run L(a) {name}", rk, rp, *tols)
+        if dt == torch.float64:
+            profile_solve(torch, "Run L(a) float64 kernels",
+                          lambda: solve(kern, dt))
+        del rk, rp
+    del exact
+
+    # (b): X = D_X, Y = D_Y.  Random marginals: uniform ones on two equal
+    # grids leave the reflection symmetry unbroken, and rounding then
+    # picks the branch (tests/reference_spreads.py coot_symmetry: routes
+    # up to 3.5 apart in L1 at n = 512 on the CPU, 1.8e-14 with random
+    # marginals)
+    n = N_L_GRID
+    grid = core.Grid1D(n, 1 / (n - 1), 1)
+    dmat = grid.dist_matrix(device="cuda")
+    marg = [torch.tensor(measures(np, n, SEED + 71 + i), device="cuda")
+            for i in range(4)]
+
+    def solve_b(cfg, grids=True):
+        extra = dict(grid_x=grid, grid_y=grid) if grids else {}
+        return coot_result(torch, *coot.entropic_coot(
+            dmat, dmat, *marg, cfg, return_info=True, **extra))
+
+    kern_b = dataclasses.replace(kern, backend="kernel")
+    plain_b = dataclasses.replace(plain, backend="cumsum")
+    rk, counts, walls["L(b) kernels"] = run_path(
+        torch, ops, f"Run L(b) COOT on Grid1D({n}) distances float64 kernels",
+        lambda: solve_b(kern_b))
+    add(counts)
+    # bilinear_product: one B3 apply a side, once a step and once for the
+    # value
+    want = {"sinkhorn_row_update": rk.info.inner_iters,
+            "sinkhorn_col_update": rk.info.inner_iters,
+            "fgc_apply_dtilde": 2 * rk.info.outer_iters + 2}
+    got = {k: counts[k] for k in want}
+    say(f"  Run L(b): launches {got}, expected {want}")
+    check(got == want, "Run L(b): launch counts differ from the code's")
+    rp, _, walls["L(b) plain"] = run_path(
+        torch, ops, "Run L(b) float64 plain", lambda: solve_b(plain_b))
+    compare_runs(torch, "Run L(b)", rk, rp, 1e-8, 1e-6)
+    rd, _, walls["L(b) dense products"] = run_path(
+        torch, ops, "Run L(b) float64 kernels, grid-less dense products",
+        lambda: solve_b(kern, grids=False))
+    say(f"  Run L(b) grid route vs dense products (no bar, the reference's "
+        f"tests/test_coot.py:39 check at n = {n}): plans L1 Δ "
+        f"{float((rk.plan - rd.plan).abs().sum()):.3e}, value relative Δ "
+        f"{abs(float(rk.value) - float(rd.value)) / abs(float(rd.value)):.3e}"
+        f", counts {rk.info.outer_iters}/{rd.info.outer_iters} outer, "
+        f"{rk.info.inner_iters}/{rd.info.inner_iters} inner")
+
+
+def run_m(torch, np, ops, core, add, walls):
+    """Run M: the fixed-support barycenter of four Grid1D inputs, kernels
+    (B1/B2, B3 on the grid sides) against plain: D̄ max relative Δ 1e-8,
+    each plan L1 Δ 1e-6 and its marginals within 1e-4."""
+    grids = [core.Grid1D(s, 1 / (s - 1), 1) for s in M_SIZES]
+    nus = [torch.tensor(measures(np, s, SEED + 80 + i), device="cuda")
+           for i, s in enumerate(M_SIZES)]
+    mu_bar = torch.full((M_SUPPORT,), 1.0 / M_SUPPORT, dtype=torch.float64,
+                        device="cuda")
+    out = {}
+    for route, fgc, sk in (("kernels", "kernel", "auto"),
+                           ("plain", "cumsum", "torch")):
+        cfg = core.BarycenterConfig(backend=fgc, sinkhorn_backend=sk,
+                                    **M_CONTROLS)
+        with Recorded(core.barycenter, "gw_plan_solve") as solves:
+            out[route], counts, walls[f"M {route}"] = run_path(
+                torch, ops, f"Run M barycenter of Grid1D {M_SIZES} on "
+                f"{M_SUPPORT} points float64 {route}",
+                lambda: core.gw_barycenter(grids, nus, M_WEIGHTS, mu_bar,
+                                           cfg))
+        infos = [info for _, info in solves.out]
+        say(f"  Run M {route}: plan solves outer "
+            f"{[i.outer_iters for i in infos]}, inner "
+            f"{[i.inner_iters for i in infos]}")
+        if route == "kernels":
+            add(counts)
+            inner = sum(i.inner_iters for i in infos)
+            # B3 on the grid side: its squared apply for C1, one apply a
+            # step, and Γ_s D_s for the update, each solve
+            want = {"sinkhorn_row_update": inner,
+                    "sinkhorn_col_update": inner,
+                    "fgc_apply_dtilde": sum(2 + i.outer_iters
+                                            for i in infos)}
+            got = {k: counts[k] for k in want}
+            say(f"  Run M: launches {got}, expected {want}")
+            check(got == want, "Run M: launch counts differ from the code's")
+            counts_k = [(i.outer_iters, i.inner_iters) for i in infos]
+        else:
+            check([(i.outer_iters, i.inner_iters) for i in infos] ==
+                  counts_k, "Run M: plan-solve counts differ")
+    (dk, pk), (dp, pp) = out["kernels"], out["plain"]
+    check(bool(torch.isfinite(dk).all()), "Run M: non-finite D̄")
+    rel = float((dk - dp).abs().max() / dp.abs().max())
+    l1 = [float((a - b).abs().sum()) for a, b in zip(pk, pp)]
+    marg = [max(float((p.sum(0) - nu).abs().max()),
+                float((p.sum(1) - mu_bar).abs().max()))
+            for p, nu in zip(pk, nus)]
+    say(f"  Run M kernels vs plain: D̄ max relative Δ {rel:.3e} (tolerance "
+        f"1e-8); plans L1 Δ {[f'{v:.2e}' for v in l1]} (tolerance 1e-6); "
+        f"plans' marginal errors {[f'{v:.2e}' for v in marg]} (tolerance "
+        f"1e-4, tests/test_solver.py:341)")
+    check(rel <= 1e-8 and max(l1) <= 1e-6 and max(marg) <= 1e-4,
+          "Run M: kernels and plain differ, or a plan is infeasible")
+
+
+def sliced_on(torch, core, pts, w, dev, dt, directions=None, **kw):
+    """sliced_gw on two clouds held on ``dev``."""
+    g = [core.PointCloudGeometry(torch.tensor(p, dtype=dt, device=dev))
+         for p in pts]
+    ws = [torch.tensor(v, dtype=dt, device=dev) for v in w]
+    return core.sliced_gw(*g, *ws, directions=directions, device=dev, **kw)
+
+
+def run_n(torch, np, ops, core, add, walls):
+    """Run N: sliced GW.  (a) the sorted method on two 10⁶-point clouds,
+    f64 and f32, against the port's own CPU run and on a rotated, permuted
+    copy; (b) sliced_plan on 8192 points and the warm start it gives a
+    kernels entropic_gw; (c) the grid method, 32 lanes of
+    entropic_gw_batch, kernels against plain, against (a) and twice."""
+    a, wa = box_cloud(np, N_N, SEED + 90)
+    b, wb = box_cloud(np, N_N, SEED + 91, scale=1.3)
+    est = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        est[name], counts, walls[f"N(a) {name}"] = run_path(
+            torch, ops, f"Run N(a) sliced_gw sorted {N_N} points n_proj "
+            f"{P_N} {name}", lambda: sliced_on(torch, core, (a, b), (wa, wb),
+                                              "cuda", dt, n_proj=P_N))
+        check(not any(counts.values()), "Run N(a): launched a kernel")
+        check(bool(torch.isfinite(est[name].profile).all()),
+              f"Run N(a) {name}: non-finite profile")
+    e64, e32 = est["float64"], est["float32"]
+    t0 = time.perf_counter()
+    cpu = sliced_on(torch, core, (a, b), (wa, wb), "cpu", torch.float64,
+                    n_proj=P_N)
+    walls["N(a) float64 CPU"] = time.perf_counter() - t0
+    rel_est = abs(float(e64.estimate) - float(cpu.estimate)) / \
+        abs(float(cpu.estimate))
+    rel_prof = float(((e64.profile.cpu() - cpu.profile).abs()
+                      / cpu.profile.abs()).max())
+    say(f"  Run N(a) float64: estimate {float(e64.estimate):.15e} (card) vs "
+        f"{float(cpu.estimate):.15e} (CPU, {walls['N(a) float64 CPU']:.1f} "
+        f"s), relative Δ {rel_est:.3e}, profile max relative Δ "
+        f"{rel_prof:.3e} (tolerance 1e-9)")
+    check(max(rel_est, rel_prof) <= 1e-9,
+          "Run N(a): the card's estimate is not the CPU's")
+    say(f"  Run N(a) float32 vs float64: estimate relative Δ "
+        f"{abs(float(e32.estimate) - float(e64.estimate)) / float(e64.estimate):.3e}"
+        f", profile max relative Δ "
+        f"{float(((e32.profile.double() - e64.profile) / e64.profile).abs().max()):.3e}"
+        " (no bar)")
+    rng = np.random.default_rng(SEED + 92)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    perm = rng.permutation(N_N)
+    rot = sliced_on(torch, core, (a, (a @ q.T)[perm]), (wa, wa[perm]),
+                    "cuda", torch.float64, n_proj=P_N)
+    ratio = abs(float(rot.estimate)) / float(e64.estimate)
+    say(f"  Run N(a) rotated, permuted copy of A against A: estimate "
+        f"{float(rot.estimate):.3e}, {ratio:.3e} of A against B (tolerance "
+        f"1e-8)")
+    check(ratio <= 1e-8, "Run N(a): a rotated copy does not score ~0")
+
+    # (b): the plan and the warm start it gives
+    pa, pb = (a[:N_N_PLAN] * N_PLAN_SCALE, b[:N_N_PLAN] * N_PLAN_SCALE)
+    mu = torch.tensor(wa[:N_N_PLAN] / wa[:N_N_PLAN].sum(), device="cuda")
+    nu = torch.tensor(wb[:N_N_PLAN] / wb[:N_N_PLAN].sum(), device="cuda")
+    gx, gy = (core.PointCloudGeometry(torch.tensor(p, device="cuda"))
+              for p in (pa, pb))
+    sp, _, walls["N(b) sliced_plan"] = run_path(
+        torch, ops, f"Run N(b) sliced_plan {N_N_PLAN} points n_proj {P_N}",
+        lambda: core.sliced_plan(gx, gy, mu, nu, n_proj=P_N))
+    err = max(float((sp.plan.sum(1) - mu).abs().max()),
+              float((sp.plan.sum(0) - nu).abs().max()))
+    say(f"  Run N(b) plan: marginal error {err:.3e} (tolerance 1e-12), "
+        f"smallest entry {float(sp.plan.min()):.1e}, "
+        f"{int((sp.plan > 0).sum())} nonzero entries")
+    check(err <= 1e-12 and float(sp.plan.min()) >= 0.0,
+          "Run N(b): the sliced plan is not a feasible coupling")
+    cfg = core.GWConfig(**N_GW_CONTROLS)
+    op = core.GradientOperator(gx, gy, cfg.backend)
+    c1, _, _ = op.constant_term(mu, nu)
+    starts = {}
+    for name, state0 in (("cold", None), ("sliced warm start",
+                                          core.FullCoupling.from_sliced(
+                                              sp.plan, mu, nu))):
+        (coup, info), counts, walls[f"N(b) {name}"] = run_path(
+            torch, ops, f"Run N(b) entropic GW {N_N_PLAN} points, {name}, "
+            "kernels", lambda: core.gw_plan_solve(op, c1, mu, nu, cfg,
+                                                  state0=state0))
+        add(counts)
+        starts[name] = (info.outer_iters, info.inner_iters, info.converged)
+        check(bool(torch.isfinite(coup.plan).all()),
+              f"Run N(b) {name}: non-finite plan")
+        check(counts["sinkhorn_row_update"] == info.inner_iters,
+              f"Run N(b) {name}: B1 launches differ from the code's")
+    say(f"  Run N(b) outer/inner/converged: cold {starts['cold']}, sliced "
+        f"warm start {starts['sliced warm start']} (a record, no bar)")
+
+    # (c): the grid method, 32 lanes of entropic_gw_batch
+    grid_est = {}
+    for fgc, plain_fgc in (("dense", "dense"), ("kernel", "cumsum")):
+        res = {}
+        for route, g_back, s_back in (("kernels", fgc, "auto"),
+                                      ("plain", plain_fgc, "torch")):
+            with Recorded(core.gw, "entropic_gw_batch") as batches, \
+                    Recorded(core.sinkhorn, "_chunked_loop") as loops:
+                est_c, counts, walls[f"N(c) {fgc} {route}"] = run_path(
+                    torch, ops, f"Run N(c) sliced_gw grid n_proj {P_N_GRID} "
+                    f"grid_n {GRID_N} grid_backend {g_back} sinkhorn "
+                    f"{s_back}", lambda: sliced_on(
+                        torch, core, (a, b), (wa, wb), "cuda", torch.float64,
+                        n_proj=P_N_GRID, method="grid", grid_n=GRID_N,
+                        grid_backend=g_back, sinkhorn_backend=s_back))
+            lanes = batches.out[0]
+            res[route] = (est_c, lanes)
+            if route == "kernels":
+                add(counts)
+                sweeps = sum(max(used, default=0) for _, used in loops.out)
+                if fgc == "kernel":
+                    check_batch_launches(f"Run N(c) {fgc}", counts, lanes,
+                                         sweeps)
+                else:
+                    check(counts["sinkhorn_row_update"] == sweeps and
+                          counts["sinkhorn_col_update"] == sweeps,
+                          f"Run N(c) {fgc}: B1/B2 launches differ from the "
+                          "code's")
+        (ek, lk), (ep, lp) = res["kernels"], res["plain"]
+        for c in range(P_N_GRID):
+            compare_runs(torch, f"Run N(c) {fgc} direction {c} kernels vs "
+                         "plain", lk[c], lp[c], 1e-8, 1e-6)
+        grid_est[fgc] = ek
+        again = sliced_on(torch, core, (a, b), (wa, wb), "cuda",
+                          torch.float64, n_proj=P_N_GRID, method="grid",
+                          grid_n=GRID_N, grid_backend=fgc)
+        check(torch.equal(again.profile, ek.profile),
+              f"Run N(c) {fgc}: two calls give different bits")
+        say(f"  Run N(c) {fgc}: a second call gives the same bits")
+    sorted_p = sliced_on(torch, core, (a, b), (wa, wb), "cuda",
+                         torch.float64, n_proj=P_N_GRID)
+    for fgc, ek in grid_est.items():
+        rel = abs(float(ek.estimate) - float(sorted_p.estimate)) / \
+            float(sorted_p.estimate)
+        corr = float(np.corrcoef(ek.profile.cpu().numpy(),
+                                 sorted_p.profile.cpu().numpy())[0, 1])
+        say(f"  Run N(c) {fgc}: grid estimate {float(ek.estimate):.9e} vs "
+            f"sorted {float(sorted_p.estimate):.9e} on the same bank, "
+            f"relative Δ {rel:.3e} (tolerance 0.1), profile correlation "
+            f"{corr:.4f} (> 0.9, tests/test_sliced.py:208)")
+        check(rel <= 0.1 and corr > 0.9,
+              f"Run N(c) {fgc}: the grid method misses the sorted one")
+    # the binning alone, twice, on the card: A's projections onto 32
+    # directions, 10⁶ atoms into 512 bins
+    proj = torch.tensor((a @ rng.normal(size=(3, P_N_GRID))).T.copy(),
+                        device="cuda")
+    w_a = torch.tensor(wa, device="cuda")
+    (h1, m1), (h2, m2) = (core.sliced._resample_1d(proj, w_a, GRID_N)
+                          for _ in range(2))
+    check(torch.equal(m1, m2) and torch.equal(h1, h2),
+          "Run N: _resample_1d gives different bits on two calls")
+    say(f"  Run N: _resample_1d of {P_N_GRID} × {N_N} atoms into {GRID_N} "
+        "bins, twice: the same bits")
+
+
+def phase_variants_path(torch, np, ops, core):
+    """Runs K, L, M, N: UGW, COOT, the barycenter and sliced GW."""
+    say("phase 3, variants: UGW, COOT, the barycenter and sliced GW")
+    start = time.perf_counter()
+    launches = {k: 0 for k in ops.LAUNCHES}
+    walls = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for run in (run_k, run_l, run_m, run_n):
+        t0 = time.perf_counter()
+        run(torch, np, ops, core, add, walls)
+        say(f"  {run.__name__[-1].upper()} with its checks: "
+            f"{time.perf_counter() - t0:.1f} s")
+    say(f"  Runs K, L, M and N with their checks: "
+        f"{time.perf_counter() - start:.1f} s of wall in all")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -2182,7 +2619,7 @@ def main() -> int:
                                        fgc_scan, lr_step))
         launches, walls = phase_main_path(torch, np, ops, core, gen)
         for phase in (phase_lowrank_path, phase_batch_path,
-                      phase_grad_path):
+                      phase_grad_path, phase_variants_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.barycenter import BarycenterConfig
+from repro_torch.core.coot import COOTConfig
 from repro_torch.core.coupling import FullCoupling, LowRankCoupling
 from repro_torch.core.fgw import FGWConfig
 from repro_torch.core.geometry import LowRankGeometry, PointCloudGeometry
@@ -23,6 +25,7 @@ from repro_torch.core.grids import Grid1D, Grid2D
 from repro_torch.core.gw import GWConfig, as_tensor, resolve_device
 from repro_torch.core.losses import AlignConfig
 from repro_torch.core.solver import MirrorCarry, SolveControls
+from repro_torch.core.ugw import UGWConfig
 
 #: the reference's FGC backend names → the port's
 FGC_BACKEND_NAMES = {"scan": "scan", "cumsum": "cumsum",
@@ -65,6 +68,32 @@ def align_config(fields: dict) -> AlignConfig:
     """A port `AlignConfig` from ``dataclasses.asdict`` of a reference
     one."""
     return AlignConfig(**_backend_names(fields))
+
+
+def ugw_config(fields: dict) -> UGWConfig:
+    """A port `UGWConfig` from ``dataclasses.asdict`` of a reference one."""
+    return UGWConfig(**_backend_names(fields))
+
+
+def coot_config(fields: dict) -> COOTConfig:
+    """A port `COOTConfig` from ``dataclasses.asdict`` of a reference
+    one."""
+    return COOTConfig(**_backend_names(fields))
+
+
+def barycenter_config(fields: dict) -> BarycenterConfig:
+    """A port `BarycenterConfig` from ``dataclasses.asdict`` of a reference
+    one."""
+    return BarycenterConfig(**_backend_names(fields))
+
+
+def direction_bank(bank, device=None) -> torch.Tensor:
+    """The reference's sliced-GW direction bank — the (d_max, n_proj)
+    ``jax.random.normal(key, ...)`` draw of its ``_directions``, as an
+    array — as the ``directions=`` tensor of `repro_torch.core.sliced_gw`
+    and `sliced_plan` on ``device``.  PyTorch cannot redraw those bits, so
+    a parity run carries them across."""
+    return as_tensor(bank, resolve_device(device))
 
 
 def solve_controls(eps, tol, eps_init, anneal_decay, inner_loosen, lr_gamma,

@@ -1,9 +1,9 @@
 """Plan representations: the `Coupling` interface behind a GW solve.
 
-Reference: ``repro/core/coupling.py`` (``Coupling``, ``FullCoupling``,
-``LowRankCoupling``, ``coupling_delta``, ``full_init`` and ``lowrank_init``
-with its rank-2 and k-means seeds, and the zero-mass padding ``pad_to`` /
-``slice_to``).
+Reference: ``repro/core/coupling.py`` (``Coupling``, ``FullCoupling`` with
+its sliced warm start ``from_sliced``, ``LowRankCoupling``,
+``coupling_delta``, ``full_init`` and ``lowrank_init`` with its rank-2 and
+k-means seeds, and the zero-mass padding ``pad_to`` / ``slice_to``).
 
 Every coupling may carry a leading lane axis: a batch's state is one
 coupling whose tensors are lane-leading (plan (B, M, N), factors
@@ -95,6 +95,18 @@ class FullCoupling(Coupling):
 
     def marginals(self):
         return self.plan.sum(dim=-1), self.plan.sum(dim=-2)
+
+    @classmethod
+    def from_sliced(cls, plan, mu, nu) -> "FullCoupling":
+        """Warm start from a sliced-GW monotone plan (`repro_torch.core.
+        sliced.sliced_plan`): the best direction's 1D coupling is already
+        exactly feasible for (μ, ν), so it drops straight into the solver
+        as its state (`init_carry`, or ``state0`` of `gw.gw_plan_solve`).
+        Potentials start at the zero-mass-aware cold point (0 on the
+        support, −inf on padding): the sliced plan carries no converged
+        Sinkhorn geometry to inherit."""
+        f, g = sk.zero_mass_potentials(mu, nu)
+        return cls(plan, f, g)
 
 
 @dataclasses.dataclass

@@ -1,13 +1,16 @@
 """GW gradient operators: dense plan and factored plan.
 
-Reference: ``repro/core/gradient.py`` (``GradientOperator`` and
-``LowRankGradientOperator``; COOT's ``bilinear_product`` belongs to a later
-slice).  A mirror-descent cost is built from three pieces (paper §2-3):
+Reference: ``repro/core/gradient.py`` (``GradientOperator``,
+``LowRankGradientOperator`` and COOT's ``bilinear_product``).  A
+mirror-descent cost is built from three pieces (paper §2-3):
 
   product(Γ)        the bottleneck term D_X Γ D_Y — O(k²MN) via FGC,
   constant_term     C1 = 2((D_X∘D_X)μ 1ᵀ + 1((D_Y∘D_Y)ν)ᵀ),
   energy(Γ)         E(Γ) = Σ (d^X_ij − d^Y_pq)² γ_ip γ_jq via the three-term
                     expansion.
+
+`bilinear_product` is the COOT generalization, X π Yᵀ, where either side
+may be an unstructured data matrix.
 """
 from __future__ import annotations
 
@@ -22,6 +25,26 @@ from repro_torch.core.grids import Grid
 from repro_torch.kernels import ops as kops
 
 GeometryLike = Union[Geometry, Grid, StackedGeometry]
+
+
+def bilinear_product(x, pi, y, grid_x: GeometryLike | None,
+                     grid_y: GeometryLike | None, backend: str = "cumsum"):
+    """X π Yᵀ with the structured fast apply on any geometry-backed side.
+
+    ``x``/``y`` are dense data matrices, used only where the side's
+    geometry is None (COOT's general case); a Grid or Geometry on a side
+    switches that factor to its structured apply (on a grid with
+    ``backend="kernel"``, the FGC kernel B3).  ``pi`` is one problem's
+    (d, e) plan or lane-leading (B, d, e) plans; the data matrices are
+    shared by the lanes.
+    """
+    if grid_x is not None:
+        left = as_geometry(grid_x, backend).apply_dist(pi, axis=-2)  # X π
+    else:
+        left = x @ pi
+    if grid_y is not None:
+        return as_geometry(grid_y, backend).apply_dist(left, axis=-1)
+    return left @ y.T
 
 
 def _set_sides(op, gx, gy):

@@ -1,10 +1,10 @@
-"""Balanced Sinkhorn solvers for the entropic-OT subproblem of each
-mirror-descent step.
+"""Sinkhorn solvers for the entropic-OT subproblem of each mirror-descent
+step.
 
 Reference: ``repro/core/sinkhorn.py`` (balanced log and kernel modes, the
-factored plan's log-domain Dykstra projection and mirror step, and the
-differentiable one-step maps `sinkhorn_step_diff` and
-`lr_mirror_step_diff`; the unbalanced modes belong to a later slice).
+unbalanced log mode of UGW, the factored plan's log-domain Dykstra
+projection and mirror step, and the differentiable one-step maps
+`sinkhorn_step_diff` and `lr_mirror_step_diff`).
 
 Conventions: plan γ_ip = exp((f_i + g_p − C_ip)/ε); marginals Σ_p γ = μ,
 Σ_i γ = ν.  Log mode is the default (the paper's ε = 0.002 underflows the
@@ -189,6 +189,38 @@ def _kernel_pieces(cost, mu, nu, eps):
     return step, plan_err
 
 
+def _unbalanced_pieces(cost, mu, nu, eps, rho_x, rho_y):
+    """Unbalanced log-domain pieces over lanes: step((f,g))->(f,g) and
+    plan_of((f,g)).  The KL penalties damp each dual update by
+    t = ρ/(ρ + ε); ε, ρ_x and ρ_y are scalars or (B,).  Plain PyTorch: the
+    reference computes this update outside any Pallas kernel too."""
+    eps = _as_eps(eps, mu)
+    rho_x = _as_eps(rho_x, mu)
+    rho_y = _as_eps(rho_y, mu)
+    tx = (rho_x / (rho_x + eps))[:, None]
+    ty = (rho_y / (rho_y + eps))[:, None]
+    e2 = eps[:, None]
+    e3 = e2[:, :, None]
+    log_mu = torch.log(mu)
+    log_nu = torch.log(nu)
+
+    def step(carry):
+        _f, g = carry
+        lse_r = sinkhorn_step._lse((g[:, None, :] - cost) / e3
+                                   + log_nu[:, None, :], 2)
+        fn = -tx * e2 * lse_r
+        lse_c = sinkhorn_step._lse((fn[:, :, None] - cost) / e3
+                                   + log_mu[:, :, None], 1)
+        return fn, -ty * e2 * lse_c
+
+    def plan_of(carry):
+        f, g = carry
+        return torch.exp((f[:, :, None] + g[:, None, :] - cost) / e3
+                         + log_mu[:, :, None] + log_nu[:, None, :])
+
+    return step, plan_of
+
+
 def _chunked_loop(carry0, step_fn, residual_fn, iters: int, chunk: int, tol):
     """The chunked early-stopping scaffold over lanes: sweeps of ``chunk``
     updates (the last one cut at the global ``iters`` cap), each followed
@@ -286,6 +318,56 @@ def sinkhorn_kernel_chunked(cost, mu, nu, eps, iters: int, chunk: int, tol,
                                iters, chunk, _as_tol(tol, mu))
     plan, b, err = plan_err(a)
     return _drop(solo, plan, a, b, err) + (used[0] if solo else used,)
+
+
+def sinkhorn_unbalanced_log(cost, mu, nu, eps, rho_x, rho_y, iters: int,
+                            f0=None, g0=None):
+    """Unbalanced log-domain Sinkhorn: KL marginal penalties rho_x/rho_y.
+
+    Solves min_γ ⟨C,γ⟩ + rho_x KL(γ1|μ) + rho_y KL(γᵀ1|ν) + ε KL(γ|μ⊗ν),
+    plan γ = exp((f⊕g − C)/ε)·(μ⊗ν).  Takes one problem or B lanes.
+    Returns (plan, f, g)."""
+    solo = cost.dim() == 2
+    cost, mu, nu, f0, g0 = _lift(solo, cost, mu, nu, f0, g0)
+    step, plan_of = _unbalanced_pieces(cost, mu, nu, eps, rho_x, rho_y)
+    carry = (torch.zeros_like(mu) if f0 is None else f0,
+             torch.zeros_like(nu) if g0 is None else g0)
+    for _ in range(iters):
+        carry = step(carry)
+    return _drop(solo, plan_of(carry), *carry)
+
+
+def sinkhorn_unbalanced_log_chunked(cost, mu, nu, eps, rho_x, rho_y,
+                                    iters: int, chunk: int, tol, f0=None,
+                                    g0=None):
+    """Unbalanced log-domain Sinkhorn with chunked early stopping.
+
+    Returns (plan, f, g, drift, iters_used).  Unbalanced plans satisfy no
+    exact marginal, so each lane's residual is its fixed-point drift: the
+    L∞ change of f plus that of g across its last chunk (a chunk cut at
+    the cap counts what it ran; a lane stopped early keeps the drift it
+    stopped on).  ``tol=0`` runs exactly ``iters`` updates, as
+    :func:`sinkhorn_unbalanced_log`."""
+    solo = cost.dim() == 2
+    cost, mu, nu, f0, g0 = _lift(solo, cost, mu, nu, f0, g0)
+    step, plan_of = _unbalanced_pieces(cost, mu, nu, eps, rho_x, rho_y)
+    tol = _as_tol(tol, mu)
+    carry = (torch.zeros_like(mu) if f0 is None else f0,
+             torch.zeros_like(nu) if g0 is None else g0)
+    # `_chunked_loop` freezes a lane once its drift is ≤ tol; its later
+    # drifts are 0, so each lane's drift is kept from its last live check
+    last = torch.full(tol.shape, torch.inf, dtype=mu.dtype, device=mu.device)
+
+    def residual(new, old):
+        nonlocal last
+        drift = ((new[0] - old[0]).abs().amax(dim=1)
+                 + (new[1] - old[1]).abs().amax(dim=1))
+        last = torch.where(last > tol, drift, last)
+        return drift
+
+    carry, used = _chunked_loop(carry, step, residual, iters, chunk, tol)
+    return _drop(solo, plan_of(carry), carry[0], carry[1], last) + \
+        (used[0] if solo else used,)
 
 
 def _warm_scalings(f0, eps):

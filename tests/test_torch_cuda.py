@@ -1117,6 +1117,44 @@ def test_implicit_grad_through_kernels_matches_torch(dev, plan):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12)
 
 
+# The reference's own spread on the case below, its lowrank_backend
+# "pallas" (interpret mode) against "xla" under jax.grad, max |Δ| over
+# max |gradient|: 2.07e-9 in the points and 3.30e-9 in μ (CPU, float64;
+# `tests/reference_spreads.py grad_3d`; the port's own spread on the card
+# by `tools/grad_spread_3d.py`).
+# The solve stops at its outer cap unconverged, where the gradient
+# amplifies rounding, so that spread is the bar of kernels against plain.
+_GRAD_3D_SPREAD = (2.07e-9, 3.30e-9)
+
+
+def test_implicit_grad_through_kernels_3d_clouds_within_reference_spread(
+        dev):
+    """The factored solve's gradient on random 3-D clouds (which stop
+    unconverged at 100 outer steps): kernels (B5–B7) forward against the
+    plain forward, held to the reference's own pallas-against-xla spread
+    on the same inputs."""
+    m, n = 300, 260
+    mu, nu = _measures_np(m, 3), _measures_np(n, 4)
+    px = np.random.default_rng(5).normal(size=(m, 3))
+    py = np.random.default_rng(6).normal(size=(n, 3))
+    grads = []
+    for route in ("auto", "torch"):
+        pts = torch.tensor(px, device=dev, requires_grad=True)
+        mu_t = torch.tensor(mu, device=dev, requires_grad=True)
+        res = entropic_gw(PointCloudGeometry(pts),
+                          PointCloudGeometry(torch.tensor(py, device=dev)),
+                          mu_t, nu, GWConfig(
+                              eps=5e-2, tol=1e-10, outer_iters=100,
+                              sinkhorn_iters=400, plan="lowrank",
+                              plan_rank=6, lr_gamma=5.0,
+                              lowrank_backend=route))
+        assert (res.info.outer_iters, res.info.converged) == (100, False)
+        grads.append(torch.autograd.grad(res.value, (pts, mu_t)))
+    for (a, b), bar in zip(zip(*grads), _GRAD_3D_SPREAD):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= bar
+
+
 def test_ragged_batch_with_zero_mass_backpropagates_without_nan(dev):
     """Five ragged FGW lanes on the kernels, padded, one with zero-mass
     atoms of its own: finite gradients everywhere, exact zeros on the
@@ -1154,3 +1192,139 @@ def test_kernel_fgc_backend_refuses_grad(dev):
     with pytest.raises(NotImplementedError, match="FGC kernel"):
         entropic_gw(Grid1D(100, h, 1), Grid1D(100, 1 / 99, 1), mu, mu,
                     GWConfig(backend="kernel", outer_iters=2))
+
+
+# ---------------------------------------------------------------------------
+# the GW variants and sliced GW on the card
+# ---------------------------------------------------------------------------
+
+def test_ugw_kernel_fgc_matches_plain(dev):
+    """An adaptive unbalanced solve at a few hundred points: the FGC
+    kernel (B3) route against the plain cumsum route, equal counts, plan
+    and value to rounding (f64)."""
+    from repro_torch.core import UGWConfig, entropic_ugw
+    n = 300
+    g = Grid1D(n, 1 / (n - 1), 1)
+    mu, nu = _measures_np(n, 61), _measures_np(n, 62)
+    out = []
+    for backend in ("kernel", "cumsum"):
+        ops.reset_launch_counts()
+        out.append(entropic_ugw(g, g, mu, nu, UGWConfig(
+            eps=1e-2, rho=1.0, tol=1e-7, eps_init=1e-1, outer_iters=30,
+            sinkhorn_iters=300, backend=backend)))
+        assert (ops.LAUNCHES["fgc_apply_dtilde"] ==
+                4 * out[-1].info.outer_iters + 4) == (backend == "kernel")
+    k, p = out
+    assert k.info.converged
+    assert (k.info.outer_iters, k.info.inner_iters) == \
+        (p.info.outer_iters, p.info.inner_iters)
+    torch.testing.assert_close(k.plan, p.plan, rtol=1e-9, atol=1e-15)
+    torch.testing.assert_close(k.value, p.value, rtol=1e-10, atol=0)
+
+
+def test_coot_kernels_match_plain(dev):
+    """COOT with both half-steps on B1/B2 (and B3 through
+    bilinear_product on grid sides) against the plain route: equal counts,
+    plans and value to rounding (f64)."""
+    from repro_torch.core.coot import COOTConfig, entropic_coot
+    rng = np.random.default_rng(63)
+    x, y = rng.random((300, 40)), rng.random((260, 24))
+    marg = [np.full(k, 1.0 / k) for k in (300, 260, 40, 24)]
+    n = 200
+    g = Grid1D(n, 1 / (n - 1), 1)
+    dmat = g.dist_matrix(device="cuda")
+    gmarg = [_measures_np(n, 64 + i) for i in range(4)]
+    for args, grids in (((x, y, *marg), {}),
+                        ((dmat, dmat, *gmarg), dict(grid_x=g, grid_y=g))):
+        out = []
+        for sk, fgc in (("auto", "kernel"), ("torch", "cumsum")):
+            ops.reset_launch_counts()
+            out.append(entropic_coot(*args, COOTConfig(
+                outer_iters=5, sinkhorn_iters=80, sinkhorn_backend=sk,
+                backend=fgc), return_info=True, **grids))
+            launched = ops.LAUNCHES["sinkhorn_row_update"]
+            assert launched == (out[-1][3].inner_iters if sk == "auto"
+                                else 0)
+        (ks, kv, kval, ki), (ps, pv, pval, pi) = out
+        assert (ki.outer_iters, ki.inner_iters) == \
+            (pi.outer_iters, pi.inner_iters)
+        torch.testing.assert_close(ks, ps, rtol=1e-9, atol=1e-15)
+        torch.testing.assert_close(kv, pv, rtol=1e-9, atol=1e-15)
+        torch.testing.assert_close(kval, pval, rtol=1e-10, atol=0)
+
+
+def test_barycenter_kernels_match_plain(dev):
+    """The barycenter's plan solves on B1/B2 and B3 against the plain
+    route (Run M's controls at a few hundred points): D̄ within 1e-8
+    normwise, plans within 1e-6 in L1, feasible within 1e-4."""
+    from repro_torch.core import BarycenterConfig, gw_barycenter
+    sizes = (150, 200, 250)
+    grids = [Grid1D(s, 1 / (s - 1), 1) for s in sizes]
+    nus = [torch.tensor(_measures_np(s, 70 + i), device=dev)
+           for i, s in enumerate(sizes)]
+    mu_bar = torch.full((220,), 1 / 220, dtype=torch.float64, device=dev)
+    out = []
+    for sk, fgc in (("auto", "kernel"), ("torch", "cumsum")):
+        out.append(gw_barycenter(grids, nus, (0.5, 0.3, 0.2), mu_bar,
+                                 BarycenterConfig(
+                                     eps=5e-3, outer_iters=3, gw_iters=5,
+                                     sinkhorn_iters=100, tol=1e-6,
+                                     eps_init=5e-2, sinkhorn_backend=sk,
+                                     backend=fgc)))
+    (dk, pk), (dp, pp) = out
+    assert float((dk - dp).abs().max() / dp.abs().max()) <= 1e-8
+    for a, b, nu in zip(pk, pp, nus):
+        assert float((a - b).abs().sum()) <= 1e-6
+        assert float((a.sum(0) - nu).abs().max()) <= 1e-4
+        assert float((a.sum(1) - mu_bar).abs().max()) <= 1e-4
+
+
+def _box(n, seed, scale=1.0):
+    r = np.random.default_rng(seed)
+    pts = (r.random((n, 3)) - 0.5) * np.array([1.0, 2.0, 3.0]) * scale
+    w = np.exp(0.5 * (pts / (np.array([1.0, 2.0, 3.0]) * scale)).sum(1))
+    return pts, w / w.sum()
+
+
+def _sliced_on(dev, pts, ws, **kw):
+    from repro_torch.core import sliced_gw
+    g = [PointCloudGeometry(torch.tensor(p, device=dev)) for p in pts]
+    return sliced_gw(*g, *(torch.tensor(w, device=dev) for w in ws),
+                     device=dev, **kw)
+
+
+def test_resample_and_grid_method_equal_bits_over_two_calls(dev):
+    """The grid method bins in a fixed order (no float atomics): the
+    binning and a whole sliced_gw(method="grid") give the same bits on two
+    calls."""
+    from repro_torch.core import sliced
+    (a, wa), (b, wb) = _box(20_000, 71), _box(15_000, 72, 1.3)
+    x = torch.tensor((a @ np.random.default_rng(73).normal(size=(3, 8))).T
+                     .copy(), device=dev)
+    w = torch.tensor(wa, device=dev)
+    h1, m1 = sliced._resample_1d(x, w, 512)
+    h2, m2 = sliced._resample_1d(x, w, 512)
+    assert torch.equal(h1, h2) and torch.equal(m1, m2)
+    first, second = (_sliced_on(dev, (a, b), (wa, wb), n_proj=4,
+                                method="grid", grid_n=128,
+                                grid_backend="kernel") for _ in range(2))
+    assert torch.isfinite(first.profile).all()
+    assert torch.equal(first.profile, second.profile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sorted_sliced_matches_cpu_run(dev, dtype):
+    """The sorted estimate on the card against the port's own CPU run on
+    the same inputs and the same (default, CPU-drawn) bank: f64 within
+    1e-9 relative, profile included; f32 within 1e-4."""
+    (a, wa), (b, wb) = _box(50_000, 74), _box(40_000, 75, 1.3)
+    pts = [p.astype(np.float64 if dtype == torch.float64 else np.float32)
+           for p in (a, b)]
+    ws = [w.astype(pts[0].dtype) for w in (wa, wb)]
+    card = _sliced_on(dev, pts, ws, n_proj=32)
+    cpu = _sliced_on("cpu", pts, ws, n_proj=32)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(card.profile.cpu(), cpu.profile, rtol=tol,
+                               atol=0)
+    torch.testing.assert_close(card.estimate.cpu(), cpu.estimate, rtol=tol,
+                               atol=0)

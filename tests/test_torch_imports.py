@@ -29,4 +29,5 @@ def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "gw.py", "ops.py", "sinkhorn_step.py",
             "fgc_scan.py", "lr_step.py", "convert.py",
-            "half_step_times.py", "fgw.py", "losses.py"} <= names
+            "half_step_times.py", "fgw.py", "losses.py", "ugw.py", "coot.py",
+            "barycenter.py", "sliced.py"} <= names

@@ -363,3 +363,36 @@ def test_lowrank_configs_rejected_as_in_reference():
         core.entropic_gw(_pc(px), _pc(py), _unif(10), _unif(10),
                          dataclasses.replace(cfg, lowrank_backend="kernel"),
                          device="cpu")
+
+
+@pytest.mark.parametrize("cost_rank", [4, 8])
+def test_entropic_gw_lowrank_euclidean_svd_route_matches_reference(
+        cost_rank):
+    """A euclidean cloud has no exact factors: `to_low_rank` takes a
+    truncated SVD of its dense cost (float64) at ``cost_rank``.  The
+    factored solve on that route has the reference's counts, and its
+    factors and value are the reference's xla route's at FAC, the bar the
+    reference's own pallas route meets against its xla route on these
+    inputs (checked here too)."""
+    px, py = _clouds(20, 25, 0)
+    mu, nu = _unif(40), _unif(50)
+    jx, jy = (JPC(jnp.asarray(p), "euclidean") for p in (px, py))
+    want, pallas = (jcore.entropic_gw(
+        jx, jy, jnp.asarray(mu), jnp.asarray(nu),
+        jcore.GWConfig(**ANNEALED, cost_rank=cost_rank, lowrank_backend=be))
+        for be in ("xla", "pallas"))
+    for name in ("q", "r", "g"):
+        np.testing.assert_allclose(np.asarray(getattr(pallas.coupling, name)),
+                                   np.asarray(getattr(want.coupling, name)),
+                                   **FAC)
+    cfg = convert.gw_config(dataclasses.asdict(jcore.GWConfig(
+        **ANNEALED, cost_rank=cost_rank, lowrank_backend="xla")))
+    got = core.entropic_gw(
+        core.PointCloudGeometry(_t(px), "euclidean"),
+        core.PointCloudGeometry(_t(py), "euclidean"), mu, nu, cfg,
+        device="cpu")
+    assert got.info.outer_iters == int(want.info.outer_iters)
+    assert got.info.inner_iters == int(want.info.inner_iters)
+    _assert_coupling(got.coupling, want.coupling)
+    np.testing.assert_allclose(float(got.value), float(want.value),
+                               rtol=1e-10)
