@@ -78,7 +78,27 @@ result line:
    ``FullCoupling.from_sliced`` gives a kernels solve, beside a cold one;
    the grid method's 32 lanes of ``entropic_gw_batch`` on the dense and
    the kernel FGC backends, kernels against plain lane by lane, against
-   the sorted estimate, and twice for equal bits, the binning too).
+   the sorted estimate, and twice for equal bits, the binning too).  Then
+   serving, through ``repro_torch.serve.engine.GWEngine``: Run O(a), a
+   mixed stream of 32 ``Grid1D`` requests of 1024–2048 points (one
+   full-plan bucket padded to 2048, B1–B3, ε cycling over the serving
+   stream's) and 24 cloud requests of 98 305–100 352 3-D points (one
+   factored bucket padded to 100 352 at rank 16, B5–B7, its 16 slots
+   refilled and repacked), f64, through the barrier, continuous and
+   pipeline schedulers: every id once, the three schedulers' plans,
+   potentials, factors and counts the same bits, every grid result its
+   solo ``entropic_gw``'s bits and every factored result its lane alone's,
+   the launches those of the code's formulas over the logged segments,
+   the refills those of the slot width and a repack in each bucket,
+   each flush's wall and stats, and the continuous and pipeline flushes'
+   busy shares under ``torch.profiler``; Run O(b), one pipeline engine with
+   the plan cache and the sliced tiers: 8 exact repeats answered with no
+   launch, 8 near repeats warm-started to fewer outer steps, 4 rotated
+   and re-indexed copies of an 8192-point cloud request found by the
+   profile stage, two sliced answers on 10⁶-point clouds equal to
+   ``sliced_gw``'s bits, and 4 refine requests whose final answers are the
+   bits of a one-lane batch resumed from the sliced plan; Run O(c), the
+   ``python -m repro_torch.launch.serve --gw`` driver as a subprocess.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -96,11 +116,14 @@ It imports nothing of JAX or of the reference package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -2266,6 +2289,474 @@ def phase_variants_path(torch, np, ops, core):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, serving: Run O through repro_torch.serve.engine.GWEngine
+# ---------------------------------------------------------------------------
+
+#: Run O's engines (BENCH_serve.json's stream settings); the solver is Run
+#: F's (the FGC kernel backend, annealed), its factored rank Run G's.
+#: O(a)'s size_bucket is 2048, so that its 32 grid requests of 1024–2048
+#: points share one bucket padded to 2048 (two slot batches of 16, with
+#: refills); at 64 they would fall into about 32 buckets of one lane each.
+#: O(a)'s 24 clouds are drawn within one such bucket (98 305–100 352
+#: points, 49 × 2048), so that one factored bucket takes more requests
+#: than its 16 slots: refills, then a repack, on B5–B7 lanes.  Their ε
+#: and decay are Run G's; every sixth starts at its ε instead of Run G's
+#: 0.5, so that the last slot batch holds lanes that stop early beside
+#: annealed stragglers (the hardness order puts the four short ones
+#: last).  O(b) pads to multiples of 64, so its 8192- and 10⁶-point
+#: clouds are not padded at all.
+O_SERVE = dict(max_batch=16, size_bucket=2048, tol=1e-5, segment_iters=6,
+               lowrank_above=50_000)
+O_GRIDS, O_CLOUDS = 32, 24
+N_O_CLOUD_MIN, N_O_CLOUD = 98_305, 100_352
+N_O_PLAN, N_O_SLICED = 8192, 1_000_000
+O_CLOUD_KNOBS = dict(eps=5e-2, anneal_decay=0.7)   # Run G's
+O_CLOUD_STARTS = (0.5,) * 5 + (5e-2,)              # eps_init, cycling
+O_PLAN_KNOBS = dict(eps=1e-2, eps_init=5e-2)   # O(b)'s 8192-point clouds
+
+
+def o_solver(core):
+    return core.GWConfig(eps=EPS_CYCLE[-1], outer_iters=30,
+                         sinkhorn_iters=300, backend="kernel",
+                         sinkhorn_backend="auto", tol=1e-5, eps_init=5e-2,
+                         anneal_decay=0.5, plan_rank=R_LR)
+
+
+class SegmentLog:
+    """Every segment a flush runs, with its plan, lanes, outer steps and
+    inner sweeps, on whichever thread runs it: the engine's segments
+    (`serve.engine._segment_stacked`, continuous and pipeline) and the
+    barrier's one-shot batches (`core.gw._segment_stacked`).  The sweeps
+    are the most any lane of an inner loop used (the lanes still running
+    advance together), summed over the segment's loops."""
+
+    def __init__(self, core):
+        from repro_torch.serve import engine as engine_mod
+        self.mods = ((engine_mod, "_segment_stacked"),
+                     (core.gw, "_segment_stacked"),
+                     (core.sinkhorn, "_chunked_loop"))
+        self.real = [getattr(m, n) for m, n in self.mods]
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.segments = []
+
+    def __enter__(self):
+        seg_real, _, loop_real = self.real
+        local = self.local
+
+        def loop(*args, **kw):
+            out = loop_real(*args, **kw)
+            if getattr(local, "loops", None) is not None:
+                local.loops.append(out[1])
+            return out
+
+        def seg(gx, gy, mus, nus, feats, ctls, carry, cfg, segment=None):
+            local.loops = []
+            t0 = carry.t
+            out = seg_real(gx, gy, mus, nus, feats, ctls, carry, cfg,
+                           segment)
+            steps = max(a - b for a, b in zip(out[0].t, t0))
+            sweeps = sum(max(u, default=0) for u in local.loops)
+            local.loops = None
+            with self.lock:
+                self.segments.append((cfg.plan, mus.shape[0], steps, sweeps))
+            return out
+
+        for (m, n), fn in zip(self.mods, (seg, seg, loop)):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.mods, self.real):
+            setattr(m, n, fn)
+
+    def expected(self):
+        """The launches the code's formulas give for these segments: a
+        full-plan grid segment launches B1 and B2 once an inner sweep and
+        B3 twice an outer step plus four (the constant term and the
+        energy); a factored segment B5 twice a sweep, B6 twice a step plus
+        two, B7 twice a step."""
+        want = {"sinkhorn_row_update": 0, "sinkhorn_col_update": 0,
+                "fgc_apply_dtilde": 0, "lr_dykstra_half": 0,
+                "lr_gram_chain": 0, "lr_grad_combine": 0}
+        for plan, _, steps, sweeps in self.segments:
+            if plan == "full":
+                want["sinkhorn_row_update"] += sweeps
+                want["sinkhorn_col_update"] += sweeps
+                want["fgc_apply_dtilde"] += 2 * steps + 4
+            else:
+                want["lr_dykstra_half"] += 2 * sweeps
+                want["lr_gram_chain"] += 2 * steps + 2
+                want["lr_grad_combine"] += 2 * steps
+        return want
+
+
+def o_stream(torch, np, core):
+    """Run O(a)'s requests: 32 Grid1D requests of 1024–2048 points a side
+    (Run F's draw, ε cycling over EPS_CYCLE, annealed from 5e-2) and 24
+    3-D Gaussian clouds of 98 305–100 352 points a side (Run G's draw, ε
+    and decay, the annealing start cycling over O_CLOUD_STARTS), in
+    rounds of 4 grids and 3 clouds; each (problem, knobs)."""
+    sizes = ragged_sizes(np, N_F // 2, N_F, O_GRIDS, SEED + 23)
+    grids = [((core.Grid1D(int(m), 1 / (m - 1), 1),
+               core.Grid1D(int(n), 1 / (n - 1), 1),
+               torch.tensor(measures(np, int(m), SEED + 300 + 2 * b),
+                            device="cuda"),
+               torch.tensor(measures(np, int(n), SEED + 301 + 2 * b),
+                            device="cuda")),
+              dict(eps=EPS_CYCLE[b % 4], eps_init=5e-2, anneal_decay=0.5))
+             for b, (m, n) in enumerate(sizes)]
+    sizes = ragged_sizes(np, N_O_CLOUD_MIN, N_O_CLOUD, O_CLOUDS, SEED + 24)
+    clouds = [((cloud(torch, np, int(m), SEED + 400 + 2 * b, torch.float64),
+                cloud(torch, np, int(n), SEED + 401 + 2 * b, torch.float64),
+                torch.full((int(m),), 1.0 / m, dtype=torch.float64,
+                           device="cuda"),
+                torch.full((int(n),), 1.0 / n, dtype=torch.float64,
+                           device="cuda")),
+               dict(O_CLOUD_KNOBS,
+                    eps_init=O_CLOUD_STARTS[b % len(O_CLOUD_STARTS)]))
+              for b, (m, n) in enumerate(sizes)]
+    stream = []
+    while grids or clouds:
+        stream += grids[:4] + clouds[:3]
+        grids, clouds = grids[4:], clouds[3:]
+    return stream
+
+
+def o_same(torch, a, b):
+    """Two results of one request with the same plan, potentials or
+    factors, and counts; the values' relative difference."""
+    same = (a.info.outer_iters, a.info.inner_iters, a.info.converged) == \
+        (b.info.outer_iters, b.info.inner_iters, b.info.converged)
+    pairs = ((a.plan, b.plan), (a.f, b.f), (a.g, b.g)) if a.plan is not None \
+        else ((a.coupling.q, b.coupling.q), (a.coupling.r, b.coupling.r),
+              (a.coupling.g, b.coupling.g))
+    same = same and all(torch.equal(x, y) for x, y in pairs)
+    rel = abs(float(a.value) - float(b.value)) / abs(float(b.value))
+    return same, rel
+
+
+def o_flush(torch, ops, core, label, eng):
+    """One flush with the launch counts set to 0 just before it and read
+    just after, its segments logged; checks the counts against the code's
+    formulas and the engine's own stats."""
+    with SegmentLog(core) as log:
+        out, counts, wall = run_path(torch, ops, label, eng.flush)
+    s = eng.stats
+    want = log.expected()
+    got = {k: counts[k] for k in want}
+    lane_steps = sum(lanes * steps for _, lanes, steps, _ in log.segments)
+    say(f"  {label}: {len(log.segments)} segments; launches {got}, from the "
+        f"segments' steps and sweeps {want}")
+    say(f"  {label} stats: executed/useful outer {s['executed_outer']}/"
+        f"{s['useful_outer']}, inner {s['executed_inner']}/"
+        f"{s['useful_inner']}, dispatches {s['dispatches']}, refills "
+        f"{s['refills']}, repacks {s['repacks']}, dispatch depth "
+        f"{s['dispatch_depth']}, device idle {s['device_idle_s']:.3f} s of "
+        f"{s['flush_wall_s']:.3f} s")
+    check(got == want, f"{label}: launch counts differ from the code's")
+    check(len(log.segments) == s["dispatches"]
+          and lane_steps == s["executed_outer"],
+          f"{label}: the segments disagree with the engine's stats")
+    if eng.cfg.scheduler != "barrier":
+        # each bucket fills its slots, refills every freed one from its
+        # queue and repacks its stragglers into a narrower batch
+        widths = {plan: [lanes for p, lanes, _, _ in log.segments
+                         if p == plan] for plan in ("full", "lowrank")}
+        want_refills = sum(max(0, n - O_SERVE["max_batch"])
+                           for n in (O_GRIDS, O_CLOUDS))
+        say(f"  {label}: segment widths, full-plan bucket {widths['full']}, "
+            f"factored bucket {widths['lowrank']}")
+        check(s["refills"] == want_refills,
+              f"{label}: {s['refills']} refills, not {want_refills}")
+        for plan, w in widths.items():
+            check(w and w[0] == O_SERVE["max_batch"] and min(w) < w[0],
+                  f"{label}: the {plan} bucket was not refilled at its full "
+                  "width and then repacked")
+    return out, counts, wall
+
+
+def run_o(torch, np, ops, core, add, walls):
+    """Run O: GW serving.  (a) a mixed stream through the barrier,
+    continuous and pipeline schedulers; (b) the plan cache and the sliced
+    tiers on one pipeline engine; (c) the CLI driver."""
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    solver = o_solver(core)
+    stream = o_stream(torch, np, core)
+    outs = {}
+    for sched in ("barrier", "continuous", "pipeline"):
+        eng = GWEngine(GWServeConfig(solver=solver, scheduler=sched,
+                                     max_inflight_buckets=2, **O_SERVE))
+        rids = [eng.submit(*p, **kw) for p, kw in stream]
+        out, counts, walls[f"O(a) {sched}"] = o_flush(
+            torch, ops, core, f"Run O(a) {sched}: {O_GRIDS} Grid1D + "
+            f"{O_CLOUDS} cloud requests", eng)
+        add(counts)
+        check(sorted(out) == sorted(rids) and len(out) == len(stream),
+              f"Run O(a) {sched}: the returned ids are not the submitted "
+              "ones, each once")
+        outs[sched] = out
+    worst = 0.0
+    for sched in ("continuous", "pipeline"):
+        for rid in outs["barrier"]:
+            same, rel = o_same(torch, outs[sched][rid], outs["barrier"][rid])
+            check(same, f"Run O(a): {sched} request {rid} differs from the "
+                  "barrier's bits or counts")
+            worst = max(worst, rel)
+    say(f"  Run O(a) schedulers: every result the same plan, potentials, "
+        f"factors and counts under barrier, continuous and pipeline; values "
+        f"within {worst:.3e} relative (tolerance 1e-12)")
+    check(worst <= 1e-12, "Run O(a): the schedulers' values differ")
+    worst, lr_l1 = 0.0, 0.0
+    t0 = time.perf_counter()
+    for rid, (p, kw) in enumerate(stream):
+        res = outs["pipeline"][rid]
+        ctl = core.SolveControls.make(kw["eps"], O_SERVE["tol"],
+                                      kw["eps_init"], kw["anneal_decay"],
+                                      device="cuda")
+        cfg = solver if res.plan is not None else \
+            dataclasses.replace(solver, plan="lowrank")
+        solo = core.entropic_gw(*p, cfg, controls=ctl)
+        if res.plan is not None:
+            same, rel = o_same(torch, res, solo)
+            check(same, f"Run O(a) request {rid}: not its solo solve's bits "
+                  "or counts")
+            worst = max(worst, rel)
+            continue
+        # a factored lane: the bits of its lane alone in the bucket's
+        # padding, and its unpadded solo solve at Run G's bar
+        q = O_SERVE["size_bucket"]
+        pad = tuple(-(-g.size // q) * q for g in p[:2])
+        (alone,) = core.entropic_gw_batch([p], cfg, pad_to=pad,
+                                          controls=[ctl])
+        same, rel = o_same(torch, res, alone)
+        check(same, f"Run O(a) request {rid}: not the bits or counts of its "
+              "lane alone at the bucket's padding")
+        worst = max(worst, rel)
+        compare_lowrank(torch, f"Run O(a) request {rid} (factored) vs its "
+                        "unpadded solo solve", res, solo, 1e-8, 1e-6)
+    torch.cuda.synchronize()
+    walls["O(a) solo solves"] = time.perf_counter() - t0
+    say(f"  Run O(a): every grid result its solo entropic_gw's plan, "
+        f"potentials and counts, every factored result its lane alone's "
+        f"factors and counts; values within {worst:.3e} relative (tolerance "
+        f"1e-12)")
+    check(worst <= 1e-12, "Run O(a): a value differs from its solo solve's")
+    for sched in ("continuous", "pipeline"):
+        eng = GWEngine(GWServeConfig(solver=solver, scheduler=sched,
+                                     max_inflight_buckets=2, **O_SERVE))
+
+        def flush():
+            for p, kw in stream:
+                eng.submit(*p, **kw)
+            return eng.flush()
+        profile_solve(torch, f"Run O(a) {sched} flush", flush)
+    del outs
+    run_o_cache(torch, np, ops, core, add, walls, solver, stream)
+    run_o_driver(torch, walls)
+
+
+def o_problem(torch, core, pts_x, w_x, pts_y, w_y):
+    return (core.PointCloudGeometry(torch.tensor(pts_x, device="cuda")),
+            core.PointCloudGeometry(torch.tensor(pts_y, device="cuda")),
+            torch.tensor(w_x, device="cuda"), torch.tensor(w_y, device="cuda"))
+
+
+def run_o_cache(torch, np, ops, core, add, walls, solver, stream):
+    """Run O(b): exact, near and profile hits, the sliced answer and the
+    refine tier, on one pipeline engine."""
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    eng = GWEngine(GWServeConfig(
+        solver=solver, scheduler="pipeline", max_inflight_buckets=2,
+        cache_capacity=64, cache_near_tol=1e-6, cache_profile_tol=1e-3,
+        sliced_n_proj=32, **dict(O_SERVE, size_bucket=64)))
+    grids = [(p, kw) for p, kw in stream if isinstance(p[0], core.Grid1D)]
+    grids = grids[:8]
+    rids = [eng.submit(*p, **kw) for p, kw in grids]
+    cold, counts, walls["O(b) cold"] = run_path(
+        torch, ops, "Run O(b) 8 grid requests cold", eng.flush)
+    add(counts)
+    cold = [cold[r] for r in rids]
+    check(all(r.info.converged for r in cold),
+          "Run O(b): a cold solve hit its cap unconverged")
+    rids = [eng.submit(*p, **kw) for p, kw in grids]
+    hot, counts, walls["O(b) exact repeats"] = run_path(
+        torch, ops, "Run O(b) 8 exact repeats", eng.flush)
+    s = eng.stats
+    check(not any(counts.values()) and s["dispatches"] == 0
+          and s["cache_hits"] == 8,
+          "Run O(b): an exact repeat reached the device")
+    check(all(hot[r] is c for r, c in zip(rids, cold)),
+          "Run O(b): an exact repeat is not the first answer")
+    say("  Run O(b) exact repeats: 8 cache hits, no dispatch, no kernel "
+        "launch, the first answers' objects")
+    rng = np.random.default_rng(SEED + 25)
+    near = []
+    for p, kw in grids:
+        mu, nu = (v + 1e-9 * torch.tensor(rng.random(v.shape[0]),
+                                          device="cuda") for v in p[2:])
+        near.append(((p[0], p[1], mu / mu.sum(), nu / nu.sum()), kw))
+    rids = [eng.submit(*p, **kw) for p, kw in near]
+    warm, counts, walls["O(b) near repeats"] = run_path(
+        torch, ops, "Run O(b) 8 near repeats (marginals moved 1e-9)",
+        eng.flush)
+    add(counts)
+    s = eng.stats
+    say(f"  Run O(b) near repeats: {s['cache_warm_starts']} warm starts "
+        f"({s['cache_profile_hits']} by the profile stage, the rest by the "
+        f"near digest), {s['cache_misses']} misses")
+    check(s["cache_warm_starts"] == 8, "Run O(b): a near repeat solved cold")
+    for r, c in zip(rids, cold):
+        w = warm[r]
+        l1 = float((w.plan - c.plan).abs().sum())
+        rel = abs(float(w.value) - float(c.value)) / abs(float(c.value))
+        say(f"    outer {w.info.outer_iters} warm vs {c.info.outer_iters} "
+            f"cold, converged {w.info.converged}, plan L1 Δ {l1:.3e} "
+            f"(tolerance 1e-3), value relative Δ {rel:.3e} (tolerance 1e-3)")
+        check(w.info.converged and w.info.outer_iters < c.info.outer_iters
+              and l1 < 1e-3 and rel <= 1e-3,
+              "Run O(b): a near repeat's warm start missed")
+    # rotated and re-indexed copies of an 8192-point cloud request
+    a, wa = box_cloud(np, N_O_PLAN, SEED + 93, N_PLAN_SCALE)
+    b, wb = box_cloud(np, N_O_PLAN, SEED + 94, 1.3 * N_PLAN_SCALE)
+    rid = eng.submit(*o_problem(torch, core, a, wa, b, wb), **O_PLAN_KNOBS)
+    base, counts, walls["O(b) 8192 cold"] = run_path(
+        torch, ops, f"Run O(b) {N_O_PLAN}-point clouds, full plan, cold",
+        eng.flush)
+    add(counts)
+    base = base[rid]
+    copies = []
+    for k in range(4):
+        qa, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        qb, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        pa, pb = rng.permutation(N_O_PLAN), rng.permutation(N_O_PLAN)
+        copies.append(eng.submit(*o_problem(torch, core, (a @ qa.T)[pa],
+                                            wa[pa], (b @ qb.T)[pb], wb[pb]),
+                                 **O_PLAN_KNOBS))
+    warm, counts, walls["O(b) 8192 copies"] = run_path(
+        torch, ops, f"Run O(b) 4 rotated, re-indexed copies", eng.flush)
+    add(counts)
+    s = eng.stats
+    say(f"  Run O(b) copies: {s['cache_profile_hits']} profile hits; cold "
+        f"outer {base.info.outer_iters} (converged {base.info.converged}), "
+        f"warm outer {[warm[r].info.outer_iters for r in copies]}, values "
+        f"{[float(warm[r].value) for r in copies]} against "
+        f"{float(base.value)}")
+    check(s["cache_profile_hits"] == 4 and s["cache_warm_starts"] == 4,
+          "Run O(b): a rotated copy was not a profile hit")
+    check(all(warm[r].info.converged for r in copies),
+          "Run O(b): a realigned warm start did not converge")
+    # the sliced answer on two 10⁶-point clouds
+    a6, wa6 = box_cloud(np, N_O_SLICED, SEED + 90)
+    b6, wb6 = box_cloud(np, N_O_SLICED, SEED + 91, scale=1.3)
+    probs = [o_problem(torch, core, a6, wa6, b6, wb6),
+             o_problem(torch, core, b6, wb6, a6, wa6)]
+    rids = [eng.submit(*p, service="sliced") for p in probs]
+    out, counts, walls["O(b) sliced"] = run_path(
+        torch, ops, f"Run O(b) 2 sliced answers, {N_O_SLICED} points",
+        eng.flush)
+    check(not any(counts.values()) and eng.stats["dispatches"] == 2,
+          "Run O(b): a sliced answer is not one call")
+    for r, p in zip(rids, probs):
+        ref = core.sliced_gw(*p, n_proj=32, seed=eng.cfg.sliced_seed)
+        say(f"  Run O(b) sliced answer {float(out[r].value):.15e}, "
+            f"sliced_gw {float(ref.estimate):.15e}")
+        check(torch.equal(out[r].value, ref.estimate),
+              "Run O(b): the sliced answer is not sliced_gw's bits")
+    del probs, out
+    # the refine tier on four 8192-point cloud pairs
+    pairs = [(box_cloud(np, N_O_PLAN, SEED + 95 + 2 * k, N_PLAN_SCALE),
+              box_cloud(np, N_O_PLAN, SEED + 96 + 2 * k, 1.3 * N_PLAN_SCALE))
+             for k in range(4)]
+    probs = [o_problem(torch, core, x, wx, y, wy)
+             for (x, wx), (y, wy) in pairs]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(eng.serve((p, dict(O_PLAN_KNOBS, service="refine"))
+                         for p in probs))
+    torch.cuda.synchronize()
+    walls["O(b) refine"] = time.perf_counter() - t0
+    add(dict(ops.LAUNCHES))
+    say(f"  Run O(b) refine: {len(got)} answers in "
+        f"{walls['O(b) refine']:.3f} s, launches {dict(ops.LAUNCHES)}")
+    check(len(got) == 8, "Run O(b): refine did not answer twice a request")
+    first, final = {}, {}
+    for r, res in got:
+        (final if r in first else first)[r] = res
+    check(len(first) == len(final) == 4, "Run O(b): refine answers missing")
+    for r, p in zip(sorted(first), probs):
+        pre, fin = first[r], final[r]
+        sp = core.sliced_plan(*p, n_proj=32, seed=eng.cfg.sliced_seed)
+        check(pre.info.outer_iters == 0 and torch.equal(pre.plan, sp.plan),
+              "Run O(b): the preliminary is not the sliced plan")
+        ctl = core.SolveControls.make(O_PLAN_KNOBS["eps"], O_SERVE["tol"],
+                                      O_PLAN_KNOBS["eps_init"],
+                                      solver.anneal_decay, device="cuda")
+        carry = core.init_carry(core.FullCoupling.stack(
+            [core.FullCoupling.from_sliced(sp.plan, p[2], p[3])]),
+            solver.outer_iters, "cuda", 1)
+        (alone,), _ = core.entropic_gw_batch([p], solver, controls=[ctl],
+                                             resume_state=carry)
+        same, rel = o_same(torch, fin, alone)
+        say(f"  Run O(b) refine request {r}: outer {fin.info.outer_iters}, "
+            f"converged {fin.info.converged}, value {float(fin.value):.9e} "
+            f"(sliced {float(pre.value):.9e}); the resumed one-lane batch's "
+            f"bits {same}, value relative Δ {rel:.3e}")
+        check(same and rel <= 1e-12, "Run O(b): the refined answer is not "
+              "the resumed one-lane batch's")
+
+
+def run_o_driver(torch, walls):
+    """Run O(c): the CLI driver on the card, as a subprocess."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--gw",
+           "--requests", "24", "--repeat-frac", "0.5", "--cache-capacity",
+           "64"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # the driver is a second process on the card: hand back the blocks
+    # this process's allocator keeps cached (a pool for each stream the
+    # pipeline's workers ran on)
+    held = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  Run O(c): this process's cached device memory "
+        f"{held / 2**30:.3f} GiB, {torch.cuda.memory_reserved() / 2**30:.3f}"
+        " GiB after handing it back")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=400)
+    walls["O(c) driver"] = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    answered = [ln for ln in lines if ln.startswith("request ")]
+    say(f"  Run O(c) {' '.join(cmd[1:])}: exit {proc.returncode}, "
+        f"{walls['O(c) driver']:.1f} s, {len(answered)} answers; last lines:")
+    for ln in lines[-3:]:
+        say(f"    {ln}")
+    check(proc.returncode == 0, "Run O(c): the driver failed: "
+          + proc.stderr[-2000:])
+    check(len(answered) == 24 and any(ln.startswith("dispatches=")
+                                      for ln in lines),
+          "Run O(c): the driver did not answer every request and report")
+
+
+def phase_serving_path(torch, np, ops, core):
+    """Run O: the GW serving engine."""
+    say("phase 3, serving: repro_torch.serve.engine.GWEngine")
+    start = time.perf_counter()
+    launches = {k: 0 for k in ops.LAUNCHES}
+    walls = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    run_o(torch, np, ops, core, add, walls)
+    say(f"  Run O with its checks: {time.perf_counter() - start:.1f} s of "
+        "wall in all")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -2619,7 +3110,8 @@ def main() -> int:
                                        fgc_scan, lr_step))
         launches, walls = phase_main_path(torch, np, ops, core, gen)
         for phase in (phase_lowrank_path, phase_batch_path,
-                      phase_grad_path, phase_variants_path):
+                      phase_grad_path, phase_variants_path,
+                      phase_serving_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v

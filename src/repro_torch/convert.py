@@ -9,7 +9,8 @@ A solve begun in the reference can be resumed here: convert its
 ``MirrorCarry`` leaves with `mirror_carry` and hand the result to
 `repro_torch.core.gw_plan_segment` (one problem's carry) or, as
 ``resume_state``, to `repro_torch.core.entropic_gw_batch` (a batch's
-stacked carry, with `solve_controls` for its stacked controls).
+stacked carry, with `solve_controls` for its stacked controls).  A serving
+engine's config carries across with `serve_config`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.core.gw import GWConfig, as_tensor, resolve_device
 from repro_torch.core.losses import AlignConfig
 from repro_torch.core.solver import MirrorCarry, SolveControls
 from repro_torch.core.ugw import UGWConfig
+from repro_torch.serve.engine import GWServeConfig
 
 #: the reference's FGC backend names → the port's
 FGC_BACKEND_NAMES = {"scan": "scan", "cumsum": "cumsum",
@@ -157,3 +159,24 @@ def mirror_carry(s0, s1, s2, t, stage, inner, err, done, trace,
                        inner=ints(inner), err=err,
                        done=tuple(bool(x) for x in np.asarray(done)),
                        trace=trace)
+
+
+def serve_config(fields: dict, device=None,
+                 sliced_directions: dict | None = None) -> GWServeConfig:
+    """A port `GWServeConfig` from ``dataclasses.asdict`` of a reference
+    one: its nested solver config through `gw_config` (an `FGWConfig` when
+    it holds ``theta``), the backend overrides' names mapped as there, and
+    the port's own ``device``.  ``sliced_directions`` maps an embedding
+    dimension d_max to the reference's (d_max, n_proj) direction bank
+    (``jax.random.normal(PRNGKey(sliced_seed), (d_max, n_proj))``), so the
+    sliced tier sees the reference's directions (`direction_bank`)."""
+    kw = dict(fields)
+    kw["solver"] = gw_config(kw["solver"])
+    for key, names in (("sinkhorn_backend", SINKHORN_BACKEND_NAMES),
+                       ("lowrank_backend", LOWRANK_BACKEND_NAMES)):
+        if kw.get(key) is not None:
+            kw[key] = names[kw[key]]
+    if sliced_directions is not None:
+        kw["sliced_directions"] = {int(d): direction_bank(bank, device)
+                                   for d, bank in sliced_directions.items()}
+    return GWServeConfig(**kw, device=device)

@@ -127,9 +127,16 @@ class LowRankCoupling(Coupling):
         return self.g.shape[-1]
 
     def delta(self, other: "LowRankCoupling"):
-        return ((self.q - other.q).abs().sum(dim=(-2, -1))
-                + (self.r - other.r).abs().sum(dim=(-2, -1))
-                + (self.g - other.g).abs().sum(dim=-1))
+        """L1 movement of Q, R and g: one value a lane for lane-leading
+        factors, each lane's summed alone (`geometry.per_lane`), since it
+        decides when the lane stops."""
+        if self.q.dim() == 2:
+            return ((self.q - other.q).abs().sum(dim=(-2, -1))
+                    + (self.r - other.r).abs().sum(dim=(-2, -1))
+                    + (self.g - other.g).abs().sum(dim=-1))
+        return (geo.per_lane(geo.lane_l1, self.q - other.q)
+                + geo.per_lane(geo.lane_l1, self.r - other.r)
+                + geo.per_lane(geo.lane_l1, self.g - other.g))
 
     def slice_to(self, m: int, n: int) -> "LowRankCoupling":
         return LowRankCoupling(self.q[..., :m, :], self.r[..., :n, :],
@@ -205,7 +212,8 @@ def _rank2_factor(w, rank: int, lam):
     ft, dev = w.dtype, w.device
     lam = lam[..., None, None] if torch.is_tensor(lam) and lam.dim() else lam
     a1 = torch.arange(1, n + 1, dtype=ft, device=dev) * (w > 0)
-    a1 = a1 / a1.sum(dim=-1, keepdim=True)
+    a1 = a1 / (a1.sum(dim=-1, keepdim=True) if a1.dim() == 1 else
+               geo.per_lane(lambda t: t.sum(dim=-1, keepdim=True), a1))
     g1 = torch.arange(1, rank + 1, dtype=ft, device=dev)
     g1 = g1 / g1.sum()
     g0 = torch.full((rank,), 1.0 / rank, dtype=ft, device=dev)

@@ -43,12 +43,58 @@ import torch
 from repro_torch.core.grids import Grid1D, Grid2D, apply_dist_lanes
 
 
+def per_lane(fn, *xs):
+    """``fn`` over lane-leading tensors, with each lane's result the bits
+    that ``fn`` gives that lane as a batch of one.
+
+    On a CUDA device ``fn`` runs once a lane, on the lane's one-lane
+    slices: PyTorch's reductions over a long axis and cuBLAS's products
+    with a thin output split their work by the whole batch's size, so on
+    an H100 a sum over 10⁵ rows, a (B, 5, 16)·(B, 16, 16) product, an
+    einsum over the lanes or a matrix-column product rounds a lane
+    otherwise at 16 lanes than alone.  The serving engine's lanes change
+    width as it refills and repacks, and each must keep its bits.
+
+    On the CPU, one call for the batch: its reductions and products are
+    lane-invariant already, and they round as the reference's batched
+    ones do.  One call a lane there moves a factor entry of
+    tests/test_torch_serve_continuous.py::
+    test_lowrank_stream_continuous_equals_barrier 1.5e-10 relative off
+    the reference's, past that test's rtol of 1e-10."""
+    lanes = xs[0].shape[0]
+    if not xs[0].is_cuda or lanes == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[i:i + 1] for x in xs)) for i in range(lanes)])
+
+
+def lane_l1(t):
+    """Each lane's L1 mass, over every axis but the lane's."""
+    return t.abs().sum(dim=tuple(range(1, t.dim())))
+
+
+#: an output with at most this many rows or columns is thin (`_lanes_mm`)
+_THIN = 32
+
+
+def _lanes_mm(a, b):
+    """a_b @ b_b for each lane, with bits that do not depend on how many
+    lanes share the call: a product with a thin output (at most ``_THIN``
+    rows or columns) runs through `per_lane`.  Wider products stay one
+    batched product: they keep a lane's bits at any batch count (held on
+    the card by tests/test_torch_cuda.py at the main path's shapes), and
+    one product a lane cost Run N(c)'s 32-lane dense grid method about a
+    third more (tools/lane_products_ab.py)."""
+    if min(a.shape[-2], b.shape[-1]) <= _THIN:
+        return per_lane(torch.matmul, a, b)
+    return a @ b
+
+
 def _matrix_apply(mat, x, axis):
     """y_b = mat_b ·_axis x_b for (B, N, N) matrices and a lane-leading x."""
     axis = axis % x.dim()
     x2 = torch.movedim(x, axis, 1)
     shape = x2.shape
-    y = torch.bmm(mat, x2.reshape(shape[0], shape[1], -1))
+    y = _lanes_mm(mat, x2.reshape(shape[0], shape[1], -1))
     return torch.movedim(y.reshape(shape), 1, axis)
 
 
@@ -459,7 +505,7 @@ class LowRankStack(StackedGeometry):
         x2 = torch.movedim(x, axis, 1).to(dt)
         shape = x2.shape
         x3 = x2.reshape(shape[0], shape[1], -1)
-        y = ap @ (bp.transpose(1, 2) @ x3)
+        y = _lanes_mm(ap, _lanes_mm(bp.transpose(1, 2), x3))
         return torch.movedim(y.reshape(shape), 1, axis)
 
 

@@ -15,12 +15,14 @@ may be an unstructured data matrix.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Union
 
 import torch
 
 from repro_torch.core.geometry import (Geometry, LowRankStack,
-                                       StackedGeometry, as_geometry, stack)
+                                       StackedGeometry, as_geometry,
+                                       per_lane, stack)
 from repro_torch.core.grids import Grid
 from repro_torch.kernels import ops as kops
 
@@ -146,6 +148,16 @@ class GradientOperator(_LaneIO):
                 - 2.0 * cross)
 
 
+def _col_sums(t):
+    """Each lane's sums over its rows (factor column sums, energies)."""
+    return t.sum(dim=1)
+
+
+#: diag(A diag(iq) B) and Σ_{k,l} iq_k A_kl iq_l B_lk, over lanes
+_DIAG_AB = functools.partial(torch.einsum, "bkl,bl,blk->bk")
+_CROSS_AB = functools.partial(torch.einsum, "bkl,bk,bl,blk->b")
+
+
 @dataclasses.dataclass(frozen=True)
 class LowRankGradientOperator(_LaneIO):
     """GW gradient pieces for a FACTORED plan P = Q diag(1/g) Rᵀ.
@@ -159,7 +171,10 @@ class LowRankGradientOperator(_LaneIO):
     grids, the cost rank for factored costs).  Point clouds are converted
     to their factored cost (`Geometry.for_factored_plan`), never
     materialized.  As `GradientOperator`, it takes one problem's
-    geometries or two stacked sides of a batch (factors then (B, N, r)).
+    geometries or two stacked sides of a batch (factors then (B, N, r));
+    on a batch its sums over the rows and its small products run through
+    `geometry.per_lane`, so a lane's bits do not depend on the batch's
+    width.
 
     Gradients at the feasible point (iq = 1/g, dx2 = (D_X∘D_X)μ,
     dy2 = (D_Y∘D_Y)ν, sQ/sR the factor column sums, tQ = Qᵀdx2,
@@ -207,7 +222,8 @@ class LowRankGradientOperator(_LaneIO):
     def _grams(self, q, r):
         u = self._sx.apply_dist(q, axis=1)                 # D_X Q   (M, r)
         v = self._sy.apply_dist(r, axis=1)                 # D_Y R   (N, r)
-        return q.transpose(1, 2) @ u, r.transpose(1, 2) @ v  # A, B (r, r)
+        return (per_lane(torch.matmul, q.transpose(1, 2), u),  # A (r, r)
+                per_lane(torch.matmul, r.transpose(1, 2), v))  # B (r, r)
 
     @staticmethod
     def _fused_chain(geom, fac, w):
@@ -230,8 +246,8 @@ class LowRankGradientOperator(_LaneIO):
             bq_y, b, sr, tr = self._fused_chain(self._sy, r, dy2)
             # Bᵀ(Q diag(iq))·Gram = (BᵀQ)diag(iq)·Gram: the (c, r) seeds of
             # the quad term cost O(c·r²), no pass over the factors
-            wq = (bq_x * iq3) @ b
-            wr = (bq_y * iq3) @ a
+            wq = per_lane(torch.matmul, bq_x * iq3, b)
+            wr = per_lane(torch.matmul, bq_y * iq3, a)
             dt = wq.dtype
             gq = kops.lr_grad_combine_batched(
                 self._sx.a.to(dt).contiguous(), wq, dx2.to(dt).contiguous(),
@@ -241,16 +257,16 @@ class LowRankGradientOperator(_LaneIO):
                 sq, tq, iq.to(dt))
         else:
             a, b = self._grams(q, r)
-            sq, sr = q.sum(dim=1), r.sum(dim=1)
-            tq = (dx2[:, None, :] @ q)[:, 0]
-            tr = (dy2[:, None, :] @ r)[:, 0]
+            sq, sr = per_lane(_col_sums, q), per_lane(_col_sums, r)
+            tq = per_lane(torch.matmul, dx2[:, None, :], q)[:, 0]
+            tr = per_lane(torch.matmul, dy2[:, None, :], r)[:, 0]
             gq = (2.0 * (dx2[:, :, None] * sr[:, None, :] + tr[:, None, :])
-                  - 4.0 * self._sx.apply_dist((q * iq3) @ b, axis=1)
-                  ) * iq3
+                  - 4.0 * self._sx.apply_dist(
+                      per_lane(torch.matmul, q * iq3, b), axis=1)) * iq3
             gr = (2.0 * (dy2[:, :, None] * sq[:, None, :] + tq[:, None, :])
-                  - 4.0 * self._sy.apply_dist((r * iq3) @ a, axis=1)
-                  ) * iq3
-        diag_ab = torch.einsum("bkl,bl,blk->bk", a, iq, b)
+                  - 4.0 * self._sy.apply_dist(
+                      per_lane(torch.matmul, r * iq3, a), axis=1)) * iq3
+        diag_ab = per_lane(_DIAG_AB, a, iq, b)
         gg = -(iq ** 2) * (2.0 * (tq * sr + sq * tr) - 4.0 * diag_ab)
         return self._out(gq), self._out(gr), self._out(gg)
 
@@ -266,11 +282,13 @@ class LowRankGradientOperator(_LaneIO):
                                             torch.zeros_like(r[:, :, 0]))
         else:
             a, b = self._grams(q, r)
-            sq, sr = q.sum(dim=1), r.sum(dim=1)
-        m1 = (q @ (iq * sr)[:, :, None])[:, :, 0]
-        m2 = (r @ (iq * sq)[:, :, None])[:, :, 0]
-        cross = torch.einsum("bkl,bk,bl,blk->b", a, iq, iq, b)
+            sq, sr = per_lane(_col_sums, q), per_lane(_col_sums, r)
+        m1 = per_lane(torch.matmul, q, (iq * sr)[:, :, None])[:, :, 0]
+        m2 = per_lane(torch.matmul, r, (iq * sq)[:, :, None])[:, :, 0]
+        cross = per_lane(_CROSS_AB, a, iq, iq, b)
         return self._out(
-            (m1 * self._sx.apply_dist(m1, axis=1, power_mult=2)).sum(dim=1)
-            + (m2 * self._sy.apply_dist(m2, axis=1, power_mult=2)).sum(dim=1)
+            per_lane(_col_sums,
+                     m1 * self._sx.apply_dist(m1, axis=1, power_mult=2))
+            + per_lane(_col_sums,
+                       m2 * self._sy.apply_dist(m2, axis=1, power_mult=2))
             - 2.0 * cross)

@@ -2,11 +2,12 @@
 fast gradient (paper §3), dense or factored plan, reverse-mode
 differentiable.
 
-Reference: ``repro/core/gw.py`` (``GWConfig``, ``GWResult``, ``gw_energy``,
-``gw_step_fn``, ``gw_lr_step_fn``, ``gw_init_state``, ``gw_plan_solve``,
-``gw_plan_segment``, ``lowrank_descent``, the implicit functions
-``_implicit_*`` and ``implicit_spec``, ``entropic_gw`` with ``plan="full"``
-and ``plan="lowrank"``, and the batch surface ``entropic_gw_batch`` with
+Reference: ``repro/core/gw.py`` (``GWConfig`` with ``static_key``,
+``GWResult``, ``gw_energy``, ``gw_step_fn``, ``gw_lr_step_fn``,
+``gw_init_state``, ``gw_plan_solve``, ``gw_plan_segment``,
+``lowrank_descent``, the implicit functions ``_implicit_*`` and
+``implicit_spec``, ``entropic_gw`` with ``plan="full"`` and
+``plan="lowrank"``, and the batch surface ``entropic_gw_batch`` with
 ``stack_problems``, ``stack_controls``, FGW feature costs
 (``_stack_features``) and its segmented resume).
 
@@ -143,6 +144,16 @@ class GWConfig:
     lowrank_init: str = "rank2"
     lr_gamma: float = 30.0     # factored-plan mirror step size γ
     g_floor: float = 1e-10     # floor on the inner weights g
+
+    def static_key(self) -> "GWConfig":
+        """This cfg with the value knobs zeroed: the structural identity a
+        serving cache keys on.  eps/tol/eps_init/anneal_decay/inner_loosen/
+        lr_gamma reach the solver as `SolveControls`, so two configs that
+        differ only in them run the same program; ``plan``, ``plan_rank``,
+        ``cost_rank``, ``g_floor``, the caps and the backends survive."""
+        return dataclasses.replace(self, eps=0.0, tol=0.0, eps_init=None,
+                                   anneal_decay=0.0, inner_loosen=0.0,
+                                   lr_gamma=0.0)
 
     def __post_init__(self):
         if self.plan not in ("full", "lowrank"):

@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.geometry import _lanes_mm, lane_l1, per_lane
 from repro_torch.kernels import lr_step, sinkhorn_step
 from repro_torch.kernels import ops as kops
 
@@ -165,7 +166,9 @@ def _log_pieces(cost, mu, nu, eps, backend: str = "torch",
 
 
 def _matvec(mat, v):
-    return torch.bmm(mat, v[:, :, None])[:, :, 0]
+    """mat_b v_b for each lane, lane-count-invariant
+    (`geometry._lanes_mm`)."""
+    return _lanes_mm(mat, v[:, :, None])[:, :, 0]
 
 
 def _kernel_pieces(cost, mu, nu, eps):
@@ -490,7 +493,8 @@ def _lr_dykstra_pieces(lk_q, lk_r, lk_g, mu, nu, log_floor,
         f1, f2, g1, g2 = s[0], s[1], s[2], s[3]
         row_q = torch.exp(f1 + sinkhorn_step._lse(g1[:, None, :] + lk_q, 2))
         row_r = torch.exp(f2 + sinkhorn_step._lse(g2[:, None, :] + lk_r, 2))
-        return (row_q - mu).abs().sum(dim=1) + (row_r - nu).abs().sum(dim=1)
+        # one sum a lane: the residual decides when a lane stops
+        return per_lane(lane_l1, row_q - mu) + per_lane(lane_l1, row_r - nu)
 
     return state0, sweep, residual
 

@@ -4,8 +4,10 @@ Reference: ``repro/core/sliced.py`` (``SlicedEstimate``,
 ``sliced_supported``, ``sliced_embedding``, ``_canonicalize``,
 ``_canonical_keys``, the closed-form 1D solve ``_self_term`` /
 ``_nw_moments`` / ``_cross_from_moments`` / ``_gw1d``, ``_directions``,
-the sorted and plan cores, ``sliced_gw``, ``sliced_plan``,
-``_resample_1d``, ``_sliced_grid`` and ``profile_distance``).
+the sorted and plan cores ``_sliced_core`` and ``_sliced_plan_core`` (over
+embedded inputs, which a serving bucket pads), ``sliced_gw``,
+``sliced_plan``, ``_resample_1d``, ``_sliced_grid`` and
+``profile_distance``).
 
 Vayer et al. (*Sliced Gromov-Wasserstein*): the 1D GW problem is solved by
 a monotone rearrangement — sort both supports and couple them in the same
@@ -254,6 +256,39 @@ def _projections(ex, ey, mu, nu, directions, seed, n_proj: int):
     return (cx @ dirs_x).T.contiguous(), (cy @ dirs_y).T.contiguous()
 
 
+def _sliced_core(ex, ey, mu, nu, directions, seed, px: int, py: int,
+                 n_proj: int):
+    """(estimate, profile) of the sorted method over embedded inputs: the
+    serving tier's fast answer.  The inputs may carry zero-mass padding
+    atoms (a serving bucket's), which no mass-weighted moment sees."""
+    xp, yp = _projections(ex, ey, mu, nu, directions, seed, n_proj)
+    vals, _ = _gw1d(xp, mu, yp, nu, px, py)
+    return vals.mean(), vals
+
+
+def _sliced_plan_core(ex, ey, mu, nu, directions, seed, px: int, py: int,
+                      n_proj: int):
+    """(estimate, profile, plan): `_sliced_core` and the best direction's
+    monotone coupling as a dense (M, N) plan, exactly feasible (zero-mass
+    rows and columns zero): the refine tier's warm-start seed."""
+    xp, yp = _projections(ex, ey, mu, nu, directions, seed, n_proj)
+    vals, decs = _gw1d(xp, mu, yp, nu, px, py)
+    best = torch.argmin(vals)
+    x, y = xp[best], yp[best]
+    ox = torch.argsort(x, stable=True)
+    oy = torch.argsort(y, stable=True)
+    oy = torch.where(decs[best], oy.flip(0), oy)
+    w, i, j = _nw_segments(mu[ox][None], nu[oy][None])
+    plan = torch.zeros((mu.shape[0], nu.shape[0]), dtype=xp.dtype,
+                       device=xp.device)
+    # each (i, j) receives at most one segment of nonzero width (the
+    # others are zero-width and add +0), so the accumulation order cannot
+    # change a bit
+    plan.index_put_((ox[i[0]], oy[j[0]]), w[0].to(plan.dtype),
+                    accumulate=True)
+    return vals.mean(), vals, plan
+
+
 def _prepare(gx, gy, mu, nu, device):
     dev = gw.resolve_device(device)
     gx, gy = as_geometry(gx), as_geometry(gy)
@@ -290,9 +325,8 @@ def sliced_gw(gx, gy, mu=None, nu=None, *, n_proj: int = 32, seed: int = 0,
     """
     ex, ey, mu, nu, px, py = _prepare(gx, gy, mu, nu, device)
     if method == "sorted":
-        xp, yp = _projections(ex, ey, mu, nu, directions, seed, n_proj)
-        vals, _ = _gw1d(xp, mu, yp, nu, px, py)
-        return SlicedEstimate(vals.mean(), vals)
+        return SlicedEstimate(*_sliced_core(ex, ey, mu, nu, directions, seed,
+                                            px, py, n_proj))
     if method != "grid":
         raise ValueError(
             f"unknown sliced method {method!r}: expected 'sorted' or "
@@ -310,22 +344,8 @@ def sliced_plan(gx, gy, mu=None, nu=None, *, n_proj: int = 32,
     wraps.  The plan is exactly feasible (marginals μ, ν; zero-mass rows
     zero)."""
     ex, ey, mu, nu, px, py = _prepare(gx, gy, mu, nu, device)
-    xp, yp = _projections(ex, ey, mu, nu, directions, seed, n_proj)
-    vals, decs = _gw1d(xp, mu, yp, nu, px, py)
-    best = torch.argmin(vals)
-    x, y = xp[best], yp[best]
-    ox = torch.argsort(x, stable=True)
-    oy = torch.argsort(y, stable=True)
-    oy = torch.where(decs[best], oy.flip(0), oy)
-    w, i, j = _nw_segments(mu[ox][None], nu[oy][None])
-    plan = torch.zeros((mu.shape[0], nu.shape[0]), dtype=xp.dtype,
-                       device=xp.device)
-    # each (i, j) receives at most one segment of nonzero width (the
-    # others are zero-width and add +0), so the accumulation order cannot
-    # change a bit
-    plan.index_put_((ox[i[0]], oy[j[0]]), w[0].to(plan.dtype),
-                    accumulate=True)
-    return SlicedEstimate(vals.mean(), vals, plan)
+    return SlicedEstimate(*_sliced_plan_core(ex, ey, mu, nu, directions,
+                                             seed, px, py, n_proj))
 
 
 def _resample_1d(x, w, grid_n: int):

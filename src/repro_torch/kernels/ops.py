@@ -6,13 +6,17 @@ it), and computes the kernel's plain PyTorch version when the tensor lies on
 the CPU.  Nothing falls back from a CUDA tensor to the plain version.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper (plain versions are
-not counted); ``reset_launch_counts`` sets them to 0.
+not counted); ``reset_launch_counts`` sets them to 0.  The counts are
+taken under a lock: the serving engine's pipeline launches from several
+threads at once, and an unguarded ``+= 1`` can lose a count.
 
 The reference's ``_tpu_f32_inputs`` is not ported: it exists because Pallas
 on a TPU has no f64, and Hopper has f64, so every wrapper keeps the
 caller's dtype.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -23,9 +27,19 @@ LAUNCHES = {"sinkhorn_row_update": 0, "sinkhorn_col_update": 0,
             "lr_dykstra_half": 0, "lr_gram_chain": 0, "lr_grad_combine": 0}
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, counted under the lock."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _resolve(family: str, backend: str, device) -> str:
@@ -90,7 +104,7 @@ def sinkhorn_row_update_batched(cost, g, log_mu, eps,
     eps = _lane_eps(eps, cost.shape[0], g)
     if cost.is_cuda:
         out = sinkhorn_step.row_update_cuda(cost, g, log_mu, eps)
-        LAUNCHES["sinkhorn_row_update"] += 1
+        count_launch("sinkhorn_row_update")
         return out
     return sinkhorn_step.row_update_plain(cost, g, log_mu, eps)
 
@@ -102,7 +116,7 @@ def sinkhorn_col_update_batched(cost, f, log_nu, eps,
     eps = _lane_eps(eps, cost.shape[0], f)
     if cost.is_cuda:
         out = sinkhorn_step.col_update_cuda(cost, f, log_nu, eps)
-        LAUNCHES["sinkhorn_col_update"] += 1
+        count_launch("sinkhorn_col_update")
         return out
     return sinkhorn_step.col_update_plain(cost, f, log_nu, eps)
 
@@ -124,7 +138,7 @@ def fgc_apply_l(x, p: int = 1, reverse: bool = False):
     ``reverse``."""
     if x.is_cuda:
         y = fgc_scan.apply_l_cuda(x, p, reverse)
-        LAUNCHES["fgc_apply_l"] += 1
+        count_launch("fgc_apply_l")
         return y
     return fgc_scan.apply_l_plain(x, p, reverse)
 
@@ -135,7 +149,7 @@ def fgc_apply_dtilde(x, p: int = 1, lanes: int = 1):
     launch, each lane with the plan of its own call."""
     if x.is_cuda:
         y = fgc_scan.apply_dtilde_cuda(x, p, lanes)
-        LAUNCHES["fgc_apply_dtilde"] += 1
+        count_launch("fgc_apply_dtilde")
         return y
     return fgc_scan.apply_dtilde_plain(x, p)
 
@@ -146,7 +160,7 @@ def lr_dykstra_half_batched(lk, gcol, logw, cost_dtype: str = "f32"):
     lk = cast_cost(lk, cost_dtype)
     if lk.is_cuda:
         out = lr_step.dykstra_half_cuda(lk, gcol, logw)
-        LAUNCHES["lr_dykstra_half"] += 1
+        count_launch("lr_dykstra_half")
         return out
     return lr_step.dykstra_half_plain(lk, gcol, logw)
 
@@ -162,7 +176,7 @@ def lr_gram_chain_batched(a_fac, b_fac, q, w):
     """(BᵀQ, Qᵀ(A·BᵀQ), Qᵀ1, Qᵀw) over (B, N, ·) lanes."""
     if q.is_cuda:
         out = lr_step.gram_chain_cuda(a_fac, b_fac, q, w)
-        LAUNCHES["lr_gram_chain"] += 1
+        count_launch("lr_gram_chain")
         return out
     return lr_step.gram_chain_plain(a_fac, b_fac, q, w)
 
@@ -178,7 +192,7 @@ def lr_grad_combine_batched(a_fac, w_small, d2, s_other, t_other, iq):
     if a_fac.is_cuda:
         out = lr_step.grad_combine_cuda(a_fac, w_small, d2, s_other,
                                         t_other, iq)
-        LAUNCHES["lr_grad_combine"] += 1
+        count_launch("lr_grad_combine")
         return out
     return lr_step.grad_combine_plain(a_fac, w_small, d2, s_other, t_other,
                                       iq)

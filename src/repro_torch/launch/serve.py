@@ -1,0 +1,128 @@
+"""The GW serving driver.
+
+Reference: ``repro/launch/serve.py`` (``_gw_stream``, ``gw_main`` and
+``main``'s ``--gw`` path; the LM generation path comes with the LM
+substrate).
+
+A standing event loop over a synthetic mixed-size request stream, through
+`GWEngine.serve` (admission, dispatch and harvest interleaved, pipelined
+across buckets, plan cache on), on the CUDA device unless ``--device``
+says otherwise:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --gw --requests 24 \\
+      --repeat-frac 0.5 --cache-capacity 64
+
+``run_event_loop`` (from `repro_torch.serve.engine`) is the library
+surface: feed any iterable of problems to an engine and collect results as
+they complete.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.geometry import PointCloudGeometry
+from repro_torch.core.gw import GWConfig, resolve_device
+from repro_torch.serve.engine import GWEngine, GWServeConfig, run_event_loop
+
+__all__ = ["main", "run_event_loop", "gw_main"]
+
+
+def _gw_stream(n_requests: int, repeat_frac: float, seed: int, device):
+    """A synthetic serving stream: mixed-size point-cloud GW problems (f32
+    points, f64 marginals, on ``device``), a ``repeat_frac`` fraction of
+    them exact repeats of earlier requests, the traffic shape the plan
+    cache exists for."""
+    rng = np.random.default_rng(seed)
+    sizes = [(12, 16), (16, 12), (24, 24), (8, 20)]
+    seen: list[tuple] = []
+    for _ in range(n_requests):
+        if seen and rng.random() < repeat_frac:
+            yield seen[rng.integers(len(seen))]
+            continue
+        m, n = sizes[int(rng.integers(len(sizes)))]
+        mu = rng.uniform(0.5, 1.5, m)
+        nu = rng.uniform(0.5, 1.5, n)
+        prob = (PointCloudGeometry(torch.tensor(
+                    rng.normal(size=(m, 3)), dtype=torch.float32,
+                    device=device)),
+                PointCloudGeometry(torch.tensor(
+                    rng.normal(size=(n, 3)), dtype=torch.float32,
+                    device=device)),
+                torch.tensor(mu / mu.sum(), device=device),
+                torch.tensor(nu / nu.sum(), device=device))
+        seen.append(prob)
+        yield prob
+
+
+def gw_main(args) -> None:
+    """Drive `GWEngine.serve` over the synthetic stream and report the
+    pipeline and cache telemetry the engine collected."""
+    device = resolve_device(args.device)
+    solver = GWConfig(eps=2e-1, outer_iters=60, sinkhorn_iters=200,
+                      sinkhorn_chunk=25, backend="dense", eps_init=1.0,
+                      anneal_decay=0.7)
+    engine = GWEngine(GWServeConfig(
+        solver=solver, tol=5e-4, max_batch=args.batch, size_bucket=16,
+        scheduler="pipeline", max_inflight_buckets=args.inflight,
+        cache_capacity=args.cache_capacity, cache_near_tol=args.near_tol,
+        cache_profile_tol=args.profile_tol, service=args.service,
+        device=device))
+    t0 = time.perf_counter()
+    done = run_event_loop(
+        engine, _gw_stream(args.requests, args.repeat_frac, args.seed,
+                           device),
+        on_result=lambda rid, res: print(
+            f"request {rid}: value={float(res.value):.6f} "
+            f"outer={int(res.info.outer_iters)} "
+            f"converged={bool(res.info.converged)}", flush=True))
+    dt = time.perf_counter() - t0
+    s = engine.stats
+    print(f"{len(done)} results in {dt:.2f}s "
+          f"({len(done) / max(dt, 1e-9):.1f} req/s) on {device}")
+    print(f"dispatches={s['dispatches']} depth={s['dispatch_depth']} "
+          f"device_idle={s['device_idle_s']:.3f}s "
+          f"cache hits/warm/miss={s['cache_hits']}/"
+          f"{s['cache_warm_starts']}/{s['cache_misses']} "
+          f"(profile={s['cache_profile_hits']}) "
+          f"sliced_answers={s['sliced_answers']}", flush=True)
+    if engine.last_errors:
+        print(f"{len(engine.last_errors)} bucket failures: "
+              f"{[k for k, _ in engine.last_errors]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--gw", action="store_true",
+                    help="serve a synthetic GW request stream (the LM "
+                         "generation driver comes with the LM substrate)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="the engine's device (default: the CUDA device)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--repeat-frac", type=float, default=0.5)
+    ap.add_argument("--inflight", type=int, default=2)
+    ap.add_argument("--cache-capacity", type=int, default=64)
+    ap.add_argument("--near-tol", type=float, default=1e-6)
+    ap.add_argument("--profile-tol", type=float, default=0.0,
+                    help="sliced-profile second cache stage tolerance "
+                         "(0 disables; catches rotated/re-indexed repeats)")
+    ap.add_argument("--service", default="exact",
+                    choices=["exact", "sliced", "refine"],
+                    help="answer class: full solve, O(N log N) sliced "
+                         "estimate, or sliced-then-refined")
+    args = ap.parse_args(argv)
+    if not args.gw:
+        sys.exit("repro_torch.launch.serve: only the GW driver (--gw) is "
+                 "ported; LM generation waits for the LM substrate "
+                 "(ROADMAP A13)")
+    gw_main(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1057,6 +1057,38 @@ def test_factored_batch_matches_solo_counts(dev):
         assert abs(float(r.value - solo.value)) <= 1e-8 * abs(float(solo.value))
 
 
+def test_factored_batch_lanes_take_their_own_bits(dev):
+    """A factored lane of a wide batch has the bits and counts of its lane
+    alone at the same padding, at 10⁵ points a side, where PyTorch's sums
+    over the rows and the small cuBLAS products of the gradient split
+    their work by the batch's width (`geometry.per_lane`): the serving
+    engine refills and repacks factored buckets."""
+    from repro_torch.core import SolveControls, entropic_gw_batch
+    rng = np.random.default_rng(47)
+    probs = []
+    for m, n in ((99_000, 100_000), (98_500, 99_500), (100_000, 98_800),
+                 (99_700, 99_900)):
+        probs.append(tuple(
+            PointCloudGeometry(torch.tensor(rng.normal(size=(k, 3)),
+                                            device=dev)) for k in (m, n))
+            + (torch.full((m,), 1.0 / m, dtype=torch.float64, device=dev),
+               torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)))
+    cfg = GWConfig(eps=5e-2, outer_iters=12, sinkhorn_iters=50, tol=1e-6,
+                   plan="lowrank", plan_rank=16)
+    ctls = [SolveControls.make(5e-2, 1e-6, e0, 0.7, device=dev)
+            for e0 in (0.5, 5e-2, 0.2, 0.1)]
+    pad = (100_000, 100_000)
+    wide = entropic_gw_batch(probs, cfg, pad_to=pad, controls=ctls)
+    for res, p, c in zip(wide, probs, ctls):
+        (alone,) = entropic_gw_batch([p], cfg, pad_to=pad, controls=[c])
+        for x, y in zip((res.coupling.q, res.coupling.r, res.coupling.g),
+                        (alone.coupling.q, alone.coupling.r,
+                         alone.coupling.g)):
+            assert torch.equal(x, y)
+        assert (res.info.outer_iters, res.info.inner_iters) == \
+            (alone.info.outer_iters, alone.info.inner_iters)
+
+
 def test_controls_build_nothing(dev):
     """ε, tol and the schedule are run-time tensors: a solve with other
     values of them leaves the build directory as it was."""
@@ -1328,3 +1360,211 @@ def test_sorted_sliced_matches_cpu_run(dev, dtype):
                                atol=0)
     torch.testing.assert_close(card.estimate.cpu(), cpu.estimate, rtol=tol,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# serving: the GW engine's schedulers on the kernels
+# ---------------------------------------------------------------------------
+
+def _serve_grids(sizes, seed0):
+    return [(Grid1D(s, 1 / (s - 1), 1), Grid1D(s, 1 / (s - 1), 1),
+             _measures_np(s, seed0 + 2 * i), _measures_np(s, seed0 + 2 * i + 1))
+            for i, s in enumerate(sizes)]
+
+
+def _serve_same_bits(a, b):
+    for x, y in ((a.plan, b.plan), (a.f, b.f), (a.g, b.g)):
+        assert torch.equal(x, y)
+    assert (a.info.outer_iters, a.info.inner_iters) == \
+        (b.info.outer_iters, b.info.inner_iters)
+    assert abs(float(a.value - b.value)) <= 1e-12 * abs(float(b.value))
+
+
+def test_serving_continuous_equals_barrier_on_kernels(dev):
+    """The counterpart of tests/test_sinkhorn_backend.py:264: continuous
+    slot scheduling returns the barrier's bits with the kernels (B1/B2,
+    and B3 on the FGC kernel backend) doing every sweep; against the
+    unbatched solve the lanes match to f64 rounding with equal counts."""
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    solver = GWConfig(eps=1e-2, outer_iters=10, sinkhorn_iters=60, tol=1e-6,
+                      sinkhorn_backend="kernel", backend="kernel")
+    probs = _serve_grids((30, 40, 36, 25), 47)
+    outs = {}
+    for sched in ("continuous", "barrier"):
+        eng = GWEngine(GWServeConfig(solver=solver, max_batch=4,
+                                     size_bucket=64, scheduler=sched,
+                                     segment_iters=3))
+        rids = [eng.submit(*p) for p in probs]
+        ops.reset_launch_counts()
+        res = eng.flush()
+        assert ops.LAUNCHES["sinkhorn_row_update"] > 0
+        assert ops.LAUNCHES["fgc_apply_dtilde"] > 0
+        assert sorted(res) == sorted(rids)
+        outs[sched] = [res[r] for r in rids]
+    for c, b in zip(outs["continuous"], outs["barrier"]):
+        _serve_same_bits(c, b)
+    for c, p in zip(outs["continuous"], probs):
+        one = entropic_gw(*p, solver)
+        assert (c.info.outer_iters, c.info.inner_iters) == \
+            (one.info.outer_iters, one.info.inner_iters)
+        torch.testing.assert_close(c.plan, one.plan, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("route", ["kernel", "torch"])
+def test_serve_config_backend_override_reaches_kernels(dev, route):
+    """``GWServeConfig.sinkhorn_backend`` / ``lowrank_backend`` override the
+    solver's: "kernel" launches B1/B2 (and B5–B7 on a factored bucket),
+    "torch" launches none of them."""
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    solver = GWConfig(eps=1e-2, outer_iters=4, sinkhorn_iters=40, tol=1e-5,
+                      sinkhorn_backend="auto", lowrank_backend="auto",
+                      plan_rank=8)
+    eng = GWEngine(GWServeConfig(solver=solver, max_batch=4, size_bucket=32,
+                                 sinkhorn_backend=route,
+                                 lowrank_backend=route, lowrank_above=300))
+    for p in _serve_grids((20, 25), 61):
+        eng.submit(*p)
+    rng = np.random.default_rng(62)
+    for n in (320, 350):
+        cloud = PointCloudGeometry(torch.tensor(rng.normal(size=(n, 3)),
+                                                device=dev))
+        eng.submit(cloud, cloud, np.ones(n) / n, np.ones(n) / n)
+    ops.reset_launch_counts()
+    assert len(eng.flush()) == 4
+    moved = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if route == "kernel":
+        assert {"sinkhorn_row_update", "sinkhorn_col_update",
+                "lr_dykstra_half", "lr_gram_chain",
+                "lr_grad_combine"} <= set(moved)
+    else:
+        assert moved == {}
+
+
+def test_pipeline_two_buckets_equal_continuous_on_kernels(dev):
+    """Two buckets (a grid bucket on B1–B3, a factored one on B5–B7) in
+    flight at once, each on a worker thread and a stream of its own:
+    every result the continuous scheduler's bits, the launches counted
+    from both threads, and both buckets' segments in flight together.
+    Each bucket has more requests than its four slots (five grids padded
+    to 256 points, six clouds to 2624), so both refill (one grid refill,
+    two factored ones) while the other bucket's segment runs."""
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    solver = GWConfig(eps=2e-2, outer_iters=12, sinkhorn_iters=80, tol=1e-6,
+                      eps_init=5e-2, backend="kernel", plan_rank=8)
+    rng = np.random.default_rng(63)
+    probs = _serve_grids((200, 240, 230, 256, 220), 64)
+    # six ragged clouds of one size bucket (2561–2624 points, padded to
+    # 2624): a factored bucket of four slots
+    for n in (2570, 2624, 2600, 2581, 2612, 2590):
+        cloud = PointCloudGeometry(torch.tensor(rng.normal(size=(n, 3)),
+                                                device=dev))
+        probs.append((cloud, cloud, np.ones(n) / n, np.ones(n) / n))
+    outs, launches = {}, {}
+    for sched in ("continuous", "pipeline"):
+        eng = GWEngine(GWServeConfig(solver=solver, max_batch=4,
+                                     size_bucket=64, scheduler=sched,
+                                     segment_iters=3, lowrank_above=2000,
+                                     max_inflight_buckets=2))
+        rids = [eng.submit(*p) for p in probs]
+        ops.reset_launch_counts()
+        res = eng.flush()
+        launches[sched] = dict(ops.LAUNCHES)
+        outs[sched] = [res[r] for r in rids]
+        assert eng.stats["refills"] == 3
+        if sched == "pipeline":
+            assert max(eng.stats["dispatch_depth"]) >= 2
+    assert launches["pipeline"] == launches["continuous"]
+    for c, p in zip(outs["continuous"], outs["pipeline"]):
+        if c.plan is not None:
+            _serve_same_bits(c, p)
+        else:
+            for x, y in ((c.coupling.q, p.coupling.q),
+                         (c.coupling.r, p.coupling.r),
+                         (c.coupling.g, p.coupling.g)):
+                assert torch.equal(x, y)
+            assert (c.info.outer_iters, c.info.inner_iters) == \
+                (p.info.outer_iters, p.info.inner_iters)
+
+
+def test_serving_stream_keeps_the_slot_width_menu_and_builds_nothing(
+        dev, monkeypatch):
+    """The counterpart of tests/test_sinkhorn_backend.py:304: a mixed-ε
+    stream through the kernels uses ≤ log2(max_batch)+1 slot widths a
+    bucket and, once the kernels are built, builds nothing."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import GWEngine, GWServeConfig
+    solver = GWConfig(eps=1e-2, outer_iters=6, sinkhorn_iters=40, tol=1e-5,
+                      backend="kernel")
+    eng = GWEngine(GWServeConfig(solver=solver, max_batch=4, size_bucket=32,
+                                 segment_iters=3))
+    eng.submit(*_serve_grids((20,), 60)[0])
+    eng.flush()                            # the kernels are built by now
+    widths = set()
+    real = engine_mod._segment_stacked
+
+    def rec(gx, gy, mus, *rest):
+        widths.add(mus.shape[0])
+        return real(gx, gy, mus, *rest)
+
+    def no_build():
+        raise AssertionError("a kernel was built during the stream")
+
+    monkeypatch.setattr(engine_mod, "_segment_stacked", rec)
+    monkeypatch.setattr(build, "build_all", no_build)
+    for i, (s, eps) in enumerate([(20, 1e-2), (25, 5e-2), (30, 2e-2),
+                                  (28, 1e-2)]):
+        eng.submit(*_serve_grids((s,), 61 + 2 * i)[0], eps=eps)
+    assert len(eng.flush()) == 4
+    assert widths <= {1, 2, 4}
+
+
+@pytest.mark.parametrize("cols", [1, 3, 300])
+def test_dense_and_factored_applies_take_their_own_bits(dev, cols):
+    """A dense or factored apply gives a lane the bits it has alone, at any
+    batch width: the serving engine's lanes change width as it refills
+    and repacks."""
+    from repro_torch.core.geometry import DenseStack, LowRankStack
+    gen = _gen(cols)
+    n = 300
+    cost = torch.rand((4, n, n), generator=gen, device=dev,
+                      dtype=torch.float64)
+    a = torch.rand((4, n, 5), generator=gen, device=dev, dtype=torch.float64)
+    b = torch.rand((4, n, 5), generator=gen, device=dev, dtype=torch.float64)
+    x = torch.rand((4, n, cols), generator=gen, device=dev,
+                   dtype=torch.float64)
+    for stack in (DenseStack(cost), LowRankStack(a, b)):
+        wide = stack.apply_dist(x, 1, 2)
+        for k in range(4):
+            one = type(stack)(*(t[k:k + 1] for t in (
+                (cost,) if isinstance(stack, DenseStack) else (a, b))))
+            assert torch.equal(wide[k], one.apply_dist(x[k:k + 1], 1, 2)[0])
+
+
+@pytest.mark.parametrize("lanes,n", [(32, 512), (4, 8192)])
+def test_wide_applies_take_their_own_bits_at_the_main_paths_shapes(
+        dev, lanes, n):
+    """The applies whose outputs are wide stay one batched product
+    (`geometry._lanes_mm`); a lane keeps the bits it has alone at the main
+    path's shapes: sliced GW's grid method (32 dense 512-point lanes
+    applied to their plans) and the refine tier's full-plan clouds (4
+    factored 8192-point lanes applied to their plans), and at the plan's
+    squared-distance column."""
+    from repro_torch.core.geometry import DenseStack, LowRankStack
+    gen = _gen(n)
+    cost = torch.rand((lanes, n, n), generator=gen, device=dev,
+                      dtype=torch.float64)
+    a = torch.rand((lanes, n, 5), generator=gen, device=dev,
+                   dtype=torch.float64)
+    b = torch.rand((lanes, n, 5), generator=gen, device=dev,
+                   dtype=torch.float64)
+    for cols in (n, 1):
+        x = torch.rand((lanes, n, cols), generator=gen, device=dev,
+                       dtype=torch.float64)
+        for stack, parts in ((DenseStack(cost), (cost,)),
+                             (LowRankStack(a, b), (a, b))):
+            wide = stack.apply_dist(x, 1, 2)
+            for k in (0, lanes - 1):
+                one = type(stack)(*(t[k:k + 1] for t in parts))
+                assert torch.equal(wide[k],
+                                   one.apply_dist(x[k:k + 1], 1, 2)[0])

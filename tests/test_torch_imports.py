@@ -1,5 +1,6 @@
-"""Import boundary: the port, its chip smoke script and its timing tools
-import neither JAX nor anything of the reference package ``repro``."""
+"""Import boundary: the port (its serving and launch packages included),
+its chip smoke script and its timing tools import neither JAX nor
+anything of the reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -30,4 +31,5 @@ def test_scan_covers_the_port():
     assert {"chip_smoke.py", "gw.py", "ops.py", "sinkhorn_step.py",
             "fgc_scan.py", "lr_step.py", "convert.py",
             "half_step_times.py", "fgw.py", "losses.py", "ugw.py", "coot.py",
-            "barycenter.py", "sliced.py"} <= names
+            "barycenter.py", "sliced.py", "engine.py", "cache.py",
+            "calibration.py", "serve.py"} <= names
