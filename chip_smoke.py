@@ -99,6 +99,23 @@ result line:
    ``sliced_gw``'s bits, and 4 refine requests whose final answers are the
    bits of a one-lane batch resumed from the sliced plan; Run O(c), the
    ``python -m repro_torch.launch.serve --gw`` driver as a subprocess.
+   Then LM serving, through ``repro_torch.serve.engine.Engine`` (Run P;
+   random weights from a seeded generator; no kernel of B1–B7 on this
+   path, which the launch counts confirm): P(a), smollm-360m at its
+   published config (32 layers, d 960), batch 4, a 128-token prompt and 64
+   greedy tokens in f32 and bf16: prefill and every decode step's logits
+   against the card's forward, the prompt's forward against the CPU's, a
+   TF32 prefill that must miss the f32 bar, bf16 against f32 within 4× the
+   CPU's own bf16 distance; prefill wall, decode ms a token, tokens/s,
+   peak memory, and 8 decode steps under ``torch.profiler`` (busy share,
+   launches a step).  P(b), the nine other architectures at their
+   published widths, depth cut to the prologue plus one template period,
+   batch 2, 64-token prompts and 16 decode steps, the same checks.  P(c),
+   mixtral-8x22b's ring buffer: a 4200-token prompt past its 4096-token
+   window and 16 decode steps that wrap it, against the forward over 4216
+   tokens; zamba2's shared slot one storage over two periods, its caches
+   per occurrence.  P(d), ``python -m repro_torch.launch.serve --arch
+   smollm-360m`` as a subprocess.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -2757,6 +2774,499 @@ def phase_serving_path(torch, np, ops, core):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, LM serving: Run P
+# ---------------------------------------------------------------------------
+
+P_A = dict(arch="smollm-360m", batch=4, prompt=128, new=64, max_len=256)
+P_B = dict(batch=2, prompt=64, new=16)
+# xLSTM's random-weight stack is chaotic (the reference's init draws the
+# sLSTM's recurrent weights (h, dh, 4dh) at std h^-½ = 0.5): a one-ulp
+# change of the weights grows to ~1e-3 of the logits by position 11
+# (tests/lm_spreads.py xlstm_chaos, the port on the CPU, 8 layers at full
+# width) and, on the card, to 1e-2 by position 15 and 0.2 by 19, and
+# past that no two f32 evaluations agree; so its prompt is cut to 4 tokens
+# (positions 3–19 are compared).
+P_B_PROMPT = {"xlstm-350m": 4}
+# P(b)'s f32 bar at each position: P_F32_BAR, or P_ENVELOPE × the distance
+# by which moving every weight one ulp (seeded directions) moves that
+# position's logits, measured on the card in the same run, where that is
+# larger.  Reordered f32 sums stayed within 2.5× that envelope at every
+# position of the chaotic xLSTM (a 4-thread against a 1-thread CPU
+# forward, and decode against forward; two seeds; tests/lm_spreads.py
+# xlstm_chaos); for the other stacks the envelope stays near 1e-6 and
+# P_F32_BAR holds.
+P_ENVELOPE = 8.0
+P_C = dict(arch="mixtral-8x22b", prompt=4200, new=16)
+P_PREFIX = 16          # the CPU's bf16-against-f32 prefix, tokens a row
+P_PROFILE_STEPS = 8
+# f32 logits, as max |Δ| over the largest |logit| of the f32 reference:
+# the same f32 arithmetic summed in other orders (cuBLAS against the CPU's
+# BLAS, a padded cache against the chunked forward) differs by a few ulp
+# (u = 6e-8) a product, compounded over ≤ 32 layers; TF32 rounds every
+# product's operands to 10 bits (u = 4.9e-4), which moves the logits by
+# ~1e-3 of their scale: the TF32 control must land outside.
+P_F32_BAR = 1e-4
+# bf16 logits against the same weights' f32 logits: 4× the CPU's own
+# bf16-against-f32 distance.  P(a) (a dense stack, whose distance does not
+# grow along the sequence): the maximum, against the CPU's on a
+# P_PREFIX-token prefix of the prompt.  P(b): the median over positions of
+# each position's maximum, against the CPU's forward at the same positions
+# of the same sequence.  The same positions, because a recurrence carries
+# bf16's rounding forward, so the distance grows along the sequence; the
+# median, because a MoE sends a token to another expert wherever bf16
+# reorders two close router probabilities, and with experts drawn at std
+# e^-½ that moves the token's logits by O(1) (smoke deepseek, the
+# reference on the CPU over four seeds: bf16 from f32 at 17 positions, the
+# maximum 0.04–0.18, the median 0.016–0.020; tests/lm_spreads.py
+# mla_bf16); such flips set the maximum, not the median.  The card's
+# kernels round otherwise (cuBLAS bf16 products accumulate in f32 and
+# round their output, as the CPU's do): its distance is of the CPU's
+# order, not its value.
+P_BF16_FACTOR = 4.0
+
+
+def p_rel(torch, got, want) -> float:
+    """max |got − want| over max |want|."""
+    want = want.float()
+    return float((got.float().to(want.device) - want).abs().max()
+                 / want.abs().max())
+
+
+def p_median(torch, got, want) -> float:
+    """The median over positions of max_v |got − want|, over max |want|."""
+    want = want.float()
+    per = (got.float().to(want.device) - want).abs().amax(-1)
+    return float(per.flatten().median() / want.abs().max())
+
+
+def p_positions(torch, got, want, scale):
+    """(B, S) of max_v |got − want| over ``scale``."""
+    return ((got.float().to(want.device) - want.float()).abs().amax(-1)
+            / scale)
+
+
+def p_envelope(torch, lm, model, cfg, seq, full):
+    """(B, S): how far moving every weight one ulp up or down (seeded
+    directions) moves each position's f32 logits from ``full``."""
+    params = list(model.parameters())
+    saved = [p.detach().clone() for p in params]
+    gen = torch.Generator(device=params[0].device)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        try:
+            for p in params:
+                up = torch.randint(0, 2, p.shape, generator=gen,
+                                   device=p.device).bool()
+                p.copy_(torch.nextafter(p, torch.where(
+                    up, math.inf, -math.inf).to(p.dtype)))
+            moved, _ = lm.forward(model, seq, cfg)
+        finally:
+            for p, s in zip(params, saved):
+                p.copy_(s)
+    return p_positions(torch, moved, full, full.abs().max())
+
+
+def p_within(torch, dist, env):
+    """The largest ratio of a position's distance to its bar
+    max(P_F32_BAR, P_ENVELOPE × envelope); ≤ 1 passes."""
+    bar = torch.clamp_min(P_ENVELOPE * env, P_F32_BAR)
+    return float((dist / bar).max())
+
+
+def p_config(cfg, layers=None):
+    """``cfg`` with its depth cut to ``layers`` (by default the prologue
+    plus one period of the template) and, for a MoE, a capacity factor of
+    ⌈e/k⌉, so that no group drops a token: prefill, decode and the forward
+    group B·S, B and B·S' tokens, and at the published 1.25 a group that
+    overflows in one of them drops tokens the others keep (the reference's
+    semantics), so a decode could not equal its forward."""
+    if layers is None:
+        layers = len(cfg.prologue) + len(cfg.block_template)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+            math.ceil(cfg.num_experts / cfg.num_experts_per_tok)))
+    return cfg
+
+
+def p_inputs(torch, np, cfg, batch, length, seed, dev):
+    """Random token ids, or frontend embeddings (std 0.1); M-RoPE positions
+    over a 2 × 4 × 8 (t, h, w) patch grid for the first 64 positions, then
+    text positions max + 1, max + 2, ... on all three axes."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.tensor(rng.integers(
+            0, cfg.vocab_size, (batch, length)), device=dev)}
+    out = {"embeddings": torch.tensor(
+        rng.normal(size=(batch, length, cfg.d_model)) * 0.1,
+        dtype=torch.float32, device=dev)}
+    if cfg.m_rope:
+        i = np.arange(length)
+        grid = np.stack([i // 32, (i // 8) % 4, i % 8], -1)
+        text = 8 + (i - 64)[:, None].repeat(3, 1)
+        thw = np.where((i < 64)[:, None], grid, text)
+        out["positions"] = torch.tensor(np.broadcast_to(
+            thw, (batch, length, 3)).copy(), device=dev)
+    return out
+
+
+def p_part(inputs, lo, hi):
+    return {k: v[:, lo:hi] for k, v in inputs.items()}
+
+
+def p_drive(torch, lm, model, cfg, inputs, n_prompt, max_len):
+    """Prefill the first ``n_prompt`` positions, then decode the rest one at
+    a time on the given inputs (teacher-forced); the logits of the
+    prefill and of each decode step, (B, S − n_prompt + 1, V)."""
+    b, s = next(iter(inputs.values())).shape[:2]
+    dev = next(model.parameters()).device
+    caches = lm.cache_init(cfg, b, max_len, torch.float32, dev)
+    lg, caches = lm.prefill(model, p_part(inputs, 0, n_prompt), cfg, caches)
+    out = [lg]
+    for t in range(n_prompt, s):
+        step = p_part(inputs, t, t + 1)
+        pos = step.pop("positions", None)
+        lg, caches = lm.decode_step(model, step, caches, cfg, position=pos)
+        out.append(lg)
+    return torch.stack(out, 1)
+
+
+def p_cpu_copy(torch, lm, model, cfg):
+    """The same weights in a model on the CPU."""
+    cpu = lm.LM(cfg, None, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        strict=True, assign=True)
+    return cpu
+
+
+def p_bf16_bar(torch, lm, cpu_model, cfg, seq, lo=0, dist=p_rel):
+    """P_BF16_FACTOR × the CPU's bf16-against-f32 distance ``dist`` of the
+    forward over ``seq`` at positions ``lo:``; also the CPU's f32
+    logits."""
+    seq = {k: v.cpu() for k, v in seq.items()}
+    f32, _ = lm.forward(cpu_model, seq, cfg)
+    bf16, _ = lm.forward(cpu_model, seq, dataclasses.replace(
+        cfg, dtype="bfloat16"))
+    d = dist(torch, bf16[:, lo:], f32[:, lo:])
+    return d, P_BF16_FACTOR * d, f32
+
+
+def p_check(label, value, bar, why):
+    say(f"  {label}: {value:.3e} (bar {bar:.1e}: {why})")
+    check(value <= bar, f"{label}: {value:.3e} over its bar {bar:.1e}")
+
+
+def p_seq(torch, inputs, tokens):
+    """The prompt followed by the generated tokens."""
+    gen = torch.as_tensor(tokens, device=inputs["tokens"].device)
+    return {"tokens": torch.cat([inputs["tokens"], gen], 1)}
+
+
+def run_p_a(torch, np, lm, configs, Engine, ServeConfig, walls):
+    """P(a): smollm-360m at its published config through the Engine."""
+    a = P_A
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(a["arch"]), dtype="float32")
+    cfg_bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = lm.init_params(cfg, gen, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  Run P(a) {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}; "
+        f"{n_params} parameters, {n_params * 4 / 2**30:.3f} GiB in f32; "
+        f"batch {a['batch']}, prompt {a['prompt']}, max_len {a['max_len']}, "
+        f"{a['new']} greedy tokens")
+    inputs = p_inputs(torch, np, cfg, a["batch"], a["prompt"], SEED, dev)
+    prompts = inputs["tokens"].cpu().numpy()
+    scfg = ServeConfig(max_len=a["max_len"], batch_size=a["batch"])
+    runs = {}
+    for c in (cfg, cfg_bf16):
+        eng = Engine(model, c, scfg)
+        eng.generate(prompts, 2)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, 0)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tokens, logits = eng.generate(prompts, a["new"], return_logits=True)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        runs[c.dtype] = (tokens, logits)
+        walls[f"P(a) {c.dtype} generate"] = t_all
+        say(f"  Run P(a) {c.dtype}: prefill wall {t_pre * 1e3:.3f} ms "
+            f"(generate of 0 tokens), generate of {a['new']} tokens "
+            f"{t_all:.3f} s: decode {(t_all - t_pre) / a['new'] * 1e3:.3f} "
+            f"ms a token, {a['batch'] * a['new'] / t_all:.1f} tokens/s")
+    tokens, logits = runs["float32"]
+    seq = p_seq(torch, inputs, tokens)
+    with torch.inference_mode():
+        full, _ = lm.forward(model, seq, cfg)
+        p_check("Run P(a) f32 prefill and decode against forward on the card",
+                p_rel(torch, logits, full[:, a["prompt"] - 1:]), P_F32_BAR,
+                "f32 sums in other orders")
+        prompt_fwd, _ = lm.forward(model, inputs, cfg)
+        cpu_model = p_cpu_copy(torch, lm, model, cfg)
+        t0 = time.perf_counter()
+        cpu_fwd, _ = lm.forward(cpu_model, {"tokens": inputs["tokens"].cpu()},
+                                cfg)
+        walls["P(a) CPU forward"] = time.perf_counter() - t0
+        p_check("Run P(a) f32 prompt forward, card against CPU",
+                p_rel(torch, prompt_fwd, cpu_fwd), P_F32_BAR,
+                "cuBLAS against the CPU's BLAS")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32, _ = lm.prefill(model, inputs, cfg, lm.cache_init(
+                cfg, a["batch"], a["max_len"], torch.float32, dev))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        d_tf32 = p_rel(torch, tf32, full[:, a["prompt"] - 1])
+        say(f"  Run P(a) TF32 control: the f32 prefill with TF32 on, "
+            f"{d_tf32:.3e} from the forward (must exceed the f32 bar "
+            f"{P_F32_BAR:.1e})")
+        check(d_tf32 > P_F32_BAR, "Run P(a): a TF32 prefill passes the f32 "
+              "bar, which then cannot tell f32 from TF32")
+        d_cpu, bar, _ = p_bf16_bar(torch, lm, cpu_model, cfg,
+                                   p_part(inputs, 0, P_PREFIX))
+        del cpu_model
+        bf16 = p_drive(torch, lm, model, cfg_bf16, seq, a["prompt"],
+                       a["max_len"])
+        check(bool(torch.isfinite(bf16).all()), "Run P(a): bf16 logits "
+              "not finite")
+        p_check("Run P(a) bf16 prefill and decode (on the f32 run's tokens) "
+                "against f32", p_rel(torch, bf16, logits), bar,
+                f"{P_BF16_FACTOR:g}× the CPU's bf16-against-f32 distance "
+                f"{d_cpu:.3e} on a {P_PREFIX}-token prefix")
+        agree = int((runs["bfloat16"][0] == tokens).sum())
+        say(f"  Run P(a) greedy tokens: bf16 equals f32 on {agree} of "
+            f"{tokens.size}")
+        # profile 8 decode steps after a prefill
+        caches = lm.cache_init(cfg, a["batch"], a["max_len"], torch.float32,
+                               dev)
+        lg, caches = lm.prefill(model, inputs, cfg, caches)
+        tok = lg.argmax(-1)
+
+        def steps():
+            nonlocal caches, tok
+            for _ in range(P_PROFILE_STEPS):
+                lg, caches = lm.decode_step(model, {"tokens": tok[:, None]},
+                                            caches, cfg)
+                tok = lg.argmax(-1)
+        steps()
+        rows = profile_solve(torch, f"Run P(a) f32, {P_PROFILE_STEPS} decode "
+                             "steps", steps)
+        if rows is not None:
+            kernels = sum(c for n, (_, c) in rows.items()
+                          if not n.startswith(("Memcpy", "Memset")))
+            say(f"  Run P(a): {kernels / P_PROFILE_STEPS:.1f} kernel launches "
+                f"a decode step ({kernels} over {P_PROFILE_STEPS}; "
+                f"{cfg.num_layers} layers)")
+    say(f"  Run P(a): peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del model, runs, logits, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_p_b(torch, np, lm, configs, Engine, ServeConfig, walls):
+    """P(b): every other architecture at its published widths, depth cut."""
+    b = P_B
+    dev = torch.device("cuda")
+    for arch in configs.ARCHS:
+        if arch == P_A["arch"]:
+            continue
+        t0 = time.perf_counter()
+        pub = configs.get(arch)
+        cfg = dataclasses.replace(p_config(pub), dtype="float32")
+        cfg_bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+        cut = f"{pub.num_layers} → {cfg.num_layers} layers"
+        if cfg.num_experts:
+            cut += (f", capacity factor {pub.moe_capacity_factor} → "
+                    f"{cfg.moe_capacity_factor}")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = lm.init_params(cfg, gen, dev)
+        prompt = P_B_PROMPT.get(arch, b["prompt"])
+        n = prompt + b["new"]
+        seq = p_inputs(torch, np, cfg, b["batch"], n, SEED, dev)
+        inputs = p_part(seq, 0, prompt)
+        if prompt != b["prompt"]:
+            cut += f", prompt {b['prompt']} → {prompt} tokens (chaotic)"
+        with torch.inference_mode():
+            if cfg.input_mode == "tokens":   # the engine's own tokens
+                eng = Engine(model, cfg, ServeConfig(max_len=n,
+                                                     batch_size=b["batch"]))
+                tokens, logits = eng.generate(inputs["tokens"].cpu().numpy(),
+                                              b["new"], return_logits=True)
+                seq = p_seq(torch, inputs, tokens)
+            else:
+                logits = p_drive(torch, lm, model, cfg, seq, prompt, n)
+            full, aux = lm.forward(model, seq, cfg)
+            scale = full.abs().max()
+            env = p_envelope(torch, lm, model, cfg, seq, full)
+            lo = prompt - 1
+            r_dec = p_within(torch, p_positions(torch, logits, full[:, lo:],
+                                                scale), env[:, lo:])
+            d_dec = p_rel(torch, logits, full[:, lo:])
+            cpu_model = p_cpu_copy(torch, lm, model, cfg)
+            d_cpu16, bar, cpu_fwd = p_bf16_bar(torch, lm, cpu_model, cfg, seq,
+                                               lo, p_median)
+            r_cpu = p_within(torch, p_positions(torch, full, cpu_fwd.to(dev),
+                                                scale), env)
+            d_cpu = p_rel(torch, full, cpu_fwd)
+            del cpu_model
+            bf16 = p_drive(torch, lm, model, cfg_bf16, seq, prompt, n)
+            finite = bool(torch.isfinite(bf16).all())
+            d_bf16 = p_median(torch, bf16, logits)
+            d_bf16_max = p_rel(torch, bf16, logits)
+        wall = time.perf_counter() - t0
+        walls[f"P(b) {arch}"] = wall
+        say(f"  Run P(b) {arch} ({cut}; d {cfg.d_model}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters): "
+            f"f32 prefill and decode against forward {d_dec:.3e} ({r_dec:.3f}"
+            f" of its bar), forward over the {n} positions card against CPU "
+            f"{d_cpu:.3e} ({r_cpu:.3f} of its bar; bars max({P_F32_BAR:.0e}, "
+            f"{P_ENVELOPE:g}× the one-ulp envelope, which reaches "
+            f"{float(env.max()):.1e}); bf16 finite {finite}, prefill and decode "
+            f"{d_bf16:.3e} from f32, median over positions (bar {bar:.3e} = "
+            f"{P_BF16_FACTOR:g}× the CPU's forward at the same positions, "
+            f"{d_cpu16:.3e}; maximum {d_bf16_max:.3e}); aux "
+            f"{float(aux):.4f}; {wall:.1f} s")
+        if arch in P_B_PROMPT:
+            say("    per position (max over rows): envelope "
+                + " ".join(f"{x:.0e}" for x in env.amax(0).tolist())
+                + "; card against CPU " + " ".join(
+                    f"{x:.0e}" for x in p_positions(
+                        torch, full, cpu_fwd.to(dev), scale).amax(0).tolist())
+                + "; decode against forward (from position "
+                f"{lo}) " + " ".join(f"{x:.0e}" for x in p_positions(
+                    torch, logits, full[:, lo:], scale).amax(0).tolist()))
+        check(r_dec <= 1 and r_cpu <= 1, f"Run P(b) {arch}: f32 over its bar")
+        check(finite and d_bf16 <= bar, f"Run P(b) {arch}: bf16 over its bar")
+        del model, full, logits, bf16
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_p_c(torch, np, lm, configs, Engine, ServeConfig, walls):
+    """P(c): mixtral's ring buffer past its window; zamba2's shared slot."""
+    c = P_C
+    dev = torch.device("cuda")
+    pub = configs.get(c["arch"])
+    cfg = dataclasses.replace(p_config(pub), dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = lm.init_params(cfg, gen, dev)
+    n = c["prompt"] + c["new"]
+    t0 = time.perf_counter()
+    inputs = p_inputs(torch, np, cfg, 1, c["prompt"], SEED, dev)
+    with torch.inference_mode():
+        eng = Engine(model, cfg, ServeConfig(max_len=n, batch_size=1))
+        tokens, logits = eng.generate(inputs["tokens"].cpu().numpy(),
+                                      c["new"], return_logits=True)
+        cache_len = lm.cache_init(cfg, 1, n, torch.float32, dev)[
+            "body"][0]["slot0"]["k"].shape[1]
+        full, _ = lm.forward(model, p_seq(torch, inputs, tokens), cfg)
+        d = p_rel(torch, logits, full[:, c["prompt"] - 1:])
+    walls["P(c) ring"] = time.perf_counter() - t0
+    say(f"  Run P(c) {cfg.name} ({pub.num_layers} → 1 layer, capacity "
+        f"factor {cfg.moe_capacity_factor}), window {cfg.sliding_window}: a "
+        f"{c['prompt']}-token prompt into a {cache_len}-slot ring, "
+        f"{c['new']} decode steps at slots "
+        f"{c['prompt'] % cache_len}–{(n - 1) % cache_len}")
+    p_check("Run P(c) f32 prefill and decode against the forward over "
+            f"{n} tokens", d, P_F32_BAR, "f32 sums in other orders")
+    del model, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pub = configs.get("zamba2-7b")
+    periods = 2
+    cfg = dataclasses.replace(p_config(pub, len(pub.prologue) + periods * len(
+        pub.block_template)), dtype="float32")
+    gen.manual_seed(SEED)
+    model = lm.init_params(cfg, gen, dev)
+    (si,) = cfg.shared_slots
+    occ = [model.stack.layer(si, r) for r in range(cfg.repeats)]
+    ptrs = {tuple(p.data_ptr() for p in layer.parameters()) for layer in occ}
+    n_shared = sum(p.numel() for p in occ[0].parameters())
+    with torch.inference_mode():
+        inputs = p_inputs(torch, np, cfg, 1, 24, SEED, dev)
+        caches = lm.cache_init(cfg, 1, 32, torch.float32, dev)
+        _, caches = lm.prefill(model, inputs, cfg, caches)
+        _, caches = lm.decode_step(model, {"tokens": inputs["tokens"][:, :1]},
+                                   caches, cfg)
+    ks = [caches["body"][r][f"slot{si}"]["k"] for r in range(cfg.repeats)]
+    separate = (len({k.data_ptr() for k in ks}) == len(ks)
+                and not torch.equal(ks[0], ks[1]))
+    lengths = [caches["body"][r][f"slot{si}"]["length"]
+               for r in range(cfg.repeats)]
+    say(f"  Run P(c) {cfg.name} ({cfg.num_layers} layers: {periods} periods): "
+        f"shared slot {si} one module at its {cfg.repeats} occurrences "
+        f"({len(ptrs)} parameter storage set, {n_shared} parameters once in "
+        f"the state dict: {sum(1 for k in model.state_dict() if k.startswith(f'stack.shared.slot{si}.'))} "
+        f"entries); caches separate {separate}, lengths {lengths}")
+    check(len(ptrs) == 1 and all(o is occ[0] for o in occ),
+          "Run P(c): zamba2's shared slot is not one parameter storage")
+    check(separate and lengths == [25] * cfg.repeats,
+          "Run P(c): zamba2's shared slot's caches are not per occurrence")
+    del model, caches, ks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_p_driver(torch, walls):
+    """P(d): the LM driver on the card, as a subprocess."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           P_A["arch"], "--batch", "4", "--prompt-len", "64", "--max-new",
+           "32"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    walls["P(d) driver"] = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    say(f"  Run P(d) {' '.join(cmd[1:])}: exit {proc.returncode}, "
+        f"{walls['P(d) driver']:.1f} s; first and last lines:")
+    for ln in lines[:1] + lines[-1:]:
+        say(f"    {ln}")
+    check(proc.returncode == 0, "Run P(d): the driver failed: "
+          + proc.stderr[-2000:])
+    check(sum(ln.startswith("request ") for ln in lines) == 4
+          and lines[-1].endswith("tok/s)"),
+          "Run P(d): the driver did not answer 4 requests with a tok/s line")
+
+
+def phase_lm_path(torch, np, ops, core):
+    """Run P: LM serving, through repro_torch.serve.engine.Engine."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    say("phase 3, LM serving: repro_torch.serve.engine.Engine (Run P; no "
+        "kernel of B1–B7 on this path)")
+    say(f"  torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"allow_bf16_reduced_precision_reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    start = time.perf_counter()
+    walls = {}
+    before = dict(ops.LAUNCHES)
+    for run in (run_p_a, run_p_b, run_p_c):
+        run(torch, np, lm, configs, Engine, ServeConfig, walls)
+    check(ops.LAUNCHES == before, "Run P launched a kernel of B1–B7: "
+          f"{before} → {ops.LAUNCHES}")
+    run_p_driver(torch, walls)
+    say(f"  Run P with its checks: {time.perf_counter() - start:.1f} s of "
+        "wall in all")
+    return {}, walls
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3111,7 +3621,7 @@ def main() -> int:
         launches, walls = phase_main_path(torch, np, ops, core, gen)
         for phase in (phase_lowrank_path, phase_batch_path,
                       phase_grad_path, phase_variants_path,
-                      phase_serving_path):
+                      phase_serving_path, phase_lm_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v

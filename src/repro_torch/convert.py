@@ -1,10 +1,12 @@
 """Carry the reference's objects across to the port.
 
-The reference (``repro``) holds no weights: what carries across is the
-geometry (grids, low-rank factors, point clouds), the measures and the
-solver state (dense or factored couplings).  Each function takes the
+What carries across of the GW side is the geometry (grids, low-rank
+factors, point clouds), the measures and the solver state (dense or
+factored couplings).  Each function takes the
 reference object's fields as plain Python values and numpy arrays (so this
 module needs nothing of JAX) and returns the port's object on ``device``.
+A language model's parameters and caches carry across with `lm_params`,
+`lm_model` and `lm_caches`, its config with `model_config`.
 A solve begun in the reference can be resumed here: convert its
 ``MirrorCarry`` leaves with `mirror_carry` and hand the result to
 `repro_torch.core.gw_plan_segment` (one problem's carry) or, as
@@ -27,6 +29,8 @@ from repro_torch.core.gw import GWConfig, as_tensor, resolve_device
 from repro_torch.core.losses import AlignConfig
 from repro_torch.core.solver import MirrorCarry, SolveControls
 from repro_torch.core.ugw import UGWConfig
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.lm import LM
 from repro_torch.serve.engine import GWServeConfig
 
 #: the reference's FGC backend names → the port's
@@ -180,3 +184,81 @@ def serve_config(fields: dict, device=None,
         kw["sliced_directions"] = {int(d): direction_bank(bank, device)
                                    for d, bank in sliced_directions.items()}
     return GWServeConfig(**kw, device=device)
+
+
+# ---------------------------------------------------------------------------
+# language models
+# ---------------------------------------------------------------------------
+
+def model_config(fields: dict) -> ModelConfig:
+    """A port `ModelConfig` from ``dataclasses.asdict`` of a reference
+    one."""
+    return ModelConfig(**fields)
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) of a nested dict/list/tuple tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def lm_params(tree, device=None) -> dict:
+    """The state dict of a port `LM` from the reference's ``lm.init_params``
+    tree (leaves as numpy arrays): the same names joined by dots, a
+    ``scanned`` slot's leaves (stacked over repeats in the reference)
+    split into one entry a repeat (``stack.scanned.slot<i>.<r>.…``).  A
+    shared slot is kept once and a tied head is the embedding, as in the
+    reference's tree."""
+    dev = resolve_device(device)
+    out = {}
+    for path, leaf in _leaves(tree):
+        arr = np.asarray(leaf)
+        if path[:2] == ("stack", "scanned"):
+            for r in range(arr.shape[0]):
+                name = ".".join(path[:3] + (str(r),) + path[3:])
+                out[name] = torch.tensor(arr[r], device=dev)
+        else:
+            out[".".join(path)] = torch.tensor(arr, device=dev)
+    return out
+
+
+def lm_model(tree, cfg: ModelConfig, device=None) -> LM:
+    """A port `LM` holding the reference's parameters (`lm_params`); every
+    parameter of the model must come from the tree and every leaf of the
+    tree must land in the model."""
+    model = LM(cfg, None, device="meta")
+    model.load_state_dict(lm_params(tree, device), strict=True, assign=True)
+    return model
+
+
+def _cache(tree, dev, rep=None):
+    def take(a):
+        a = np.asarray(a)
+        return a if rep is None else a[rep]
+    out = {}
+    for k, v in tree.items():
+        if k == "length":
+            out[k] = int(take(v))
+        elif k == "carry":
+            out[k] = tuple(torch.tensor(take(a), device=dev) for a in v)
+        else:
+            out[k] = torch.tensor(take(v), device=dev)
+    return out
+
+
+def lm_caches(tree, cfg: ModelConfig, device=None) -> dict:
+    """The port's caches from the reference's ``lm.cache_init`` or
+    ``prefill`` caches (leaves as numpy arrays): the body's caches,
+    stacked over repeats in the reference, split into one dict a repeat;
+    ``length`` a host int."""
+    dev = resolve_device(device)
+    return {"prologue": [_cache(c, dev) for c in tree["prologue"]],
+            "body": [{f"slot{si}": _cache(tree["body"][f"slot{si}"], dev, r)
+                      for si in range(len(cfg.block_template))}
+                     for r in range(cfg.repeats)]}

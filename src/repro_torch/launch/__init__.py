@@ -1,3 +1,4 @@
 """Launch layer, ported from ``repro.launch``: the serving driver
-(`repro_torch.launch.serve`).  The reference's mesh, specs, dry-run and
-train drivers come with the LM substrate."""
+(`repro_torch.launch.serve`, LM generation and GW serving).  The
+reference's train, mesh, specs, dry-run, flops and collectives modules
+come with the trainer."""

@@ -1,15 +1,22 @@
-"""The GW serving driver.
+"""Serving drivers: LM generation and GW serving.
 
 Reference: ``repro/launch/serve.py`` (``_gw_stream``, ``gw_main`` and
-``main``'s ``--gw`` path; the LM generation path comes with the LM
-substrate).
+``main``).  Both run on the CUDA device unless ``--device`` says
+otherwise.
 
-A standing event loop over a synthetic mixed-size request stream, through
-`GWEngine.serve` (admission, dispatch and harvest interleaved, pipelined
-across buckets, plan cache on), on the CUDA device unless ``--device``
-says otherwise:
+LM generation: a randomly initialised model (seeded ``torch.Generator``)
+answers a batch of random equal-length prompts through
+`repro_torch.serve.engine.Engine`; on the CPU the model computes in f32,
+as the reference's does there:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --gw --requests 24 \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+      --batch 4 --prompt-len 64 --max-new 32
+
+GW serving: a standing event loop over a synthetic mixed-size request
+stream, through `GWEngine.serve` (admission, dispatch and harvest
+interleaved, pipelined across buckets, plan cache on):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --gw --requests 24 \
       --repeat-frac 0.5 --cache-capacity 64
 
 ``run_event_loop`` (from `repro_torch.serve.engine`) is the library
@@ -19,17 +26,21 @@ they complete.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.core.geometry import PointCloudGeometry
 from repro_torch.core.gw import GWConfig, resolve_device
-from repro_torch.serve.engine import GWEngine, GWServeConfig, run_event_loop
+from repro_torch.models import lm
+from repro_torch.serve.engine import (Engine, GWEngine, GWServeConfig,
+                                      ServeConfig, run_event_loop)
 
-__all__ = ["main", "run_event_loop", "gw_main"]
+__all__ = ["main", "run_event_loop", "gw_main", "lm_main"]
 
 
 def _gw_stream(n_requests: int, repeat_frac: float, seed: int, device):
@@ -95,15 +106,59 @@ def gw_main(args) -> None:
               f"{[k for k, _ in engine.last_errors]}")
 
 
+def lm_main(args) -> None:
+    """Generate ``--max-new`` tokens for ``--batch`` random prompts with a
+    randomly initialised ``--arch`` model."""
+    if args.ckpt_dir:
+        sys.exit("repro_torch.launch.serve: --ckpt-dir needs the checkpoint "
+                 "manager, which comes with the trainer (ROADMAP A14)")
+    device = resolve_device(args.device)
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get(args.arch))
+    if device.type == "cpu":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, device)
+    engine = Engine(params, cfg,
+                    ServeConfig(max_len=args.max_len, batch_size=args.batch,
+                                temperature=args.temperature),
+                    rng_seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    print(f"{cfg.name} ({cfg.dtype}) on {device}: initialised in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.max_new)
+    dt = time.perf_counter() - t0
+    for i, row in enumerate(out):
+        print(f"request {i}: {row.tolist()}")
+    print(f"{args.batch * args.max_new} tokens in {dt:.2f}s "
+          f"({args.batch * args.max_new / dt:.1f} tok/s)", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--gw", action="store_true",
-                    help="serve a synthetic GW request stream (the LM "
-                         "generation driver comes with the LM substrate)")
+                    help="serve a synthetic GW request stream instead of LM")
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=configs.ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced smoke config")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore trained params (not ported yet: the "
+                         "checkpoint manager comes with the trainer)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="the engine's device (default: the CUDA device)")
+    # GW event-loop knobs
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--repeat-frac", type=float, default=0.5)
     ap.add_argument("--inflight", type=int, default=2)
@@ -117,11 +172,10 @@ def main(argv=None):
                     help="answer class: full solve, O(N log N) sliced "
                          "estimate, or sliced-then-refined")
     args = ap.parse_args(argv)
-    if not args.gw:
-        sys.exit("repro_torch.launch.serve: only the GW driver (--gw) is "
-                 "ported; LM generation waits for the LM substrate "
-                 "(ROADMAP A13)")
-    gw_main(args)
+    if args.gw:
+        gw_main(args)
+    else:
+        lm_main(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,115 @@
+"""Feed-forward layers: SwiGLU MLP and capacity-based top-k MoE (GShard-style
+grouped dispatch).
+
+Reference: ``repro/models/mlp.py``.  The MoE keeps the reference's
+arithmetic: groups of the largest size ≤ ``moe_group_size`` that divides
+the token count, a capacity of ``max(1, int(g·topk/e·cf))`` in Python
+floats, the top-k experts in the order of ``lax.top_k`` (a stable
+descending sort: on ties the lower index first), queue positions from a
+cumsum over (token, k) in token-major order, tokens over capacity dropped,
+and the one-hot dispatch and combine contractions, so its sums are the
+reference's.  The reference's vmap over groups is a leading group axis.
+"""
+from __future__ import annotations
+
+import torch
+from torch.nn.functional import silu
+
+from repro_torch.models import common
+from repro_torch.models.common import ModelConfig
+
+
+class MLP(torch.nn.Module):
+    """Dense SwiGLU: ``w_gate``/``w_up`` (d,ff), ``w_down`` (ff,d)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device=None, d_ff: int | None = None):
+        super().__init__()
+        pd = cfg.param_dtype
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
+        self.w_gate = common.dense_init(generator, (d, ff), pd, device)
+        self.w_up = common.dense_init(generator, (d, ff), pd, device)
+        self.w_down = common.dense_init(generator, (ff, d), pd, device)
+
+    def forward(self, x, cfg: ModelConfig):
+        dt = cfg.compute_dtype
+        g = torch.einsum("bsd,df->bsf", x, self.w_gate.to(dt))
+        u = torch.einsum("bsd,df->bsf", x, self.w_up.to(dt))
+        return torch.einsum("bsf,fd->bsd", silu(g) * u, self.w_down.to(dt))
+
+
+def group_size(tokens: int, requested: int) -> int:
+    """The largest group size ≤ ``requested`` that divides ``tokens``."""
+    g = min(requested, tokens)
+    while tokens % g:
+        g -= 1
+    return g
+
+
+def top_k_stable(probs, k: int):
+    """``lax.top_k``: the k largest along the last axis, the lower index
+    first on ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoE(torch.nn.Module):
+    """Top-k routed experts (``router`` (d,e), experts (e,d,ff) and
+    (e,ff,d)) with optional shared experts (an `MLP` of width
+    moe_d_ff · num_shared_experts)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        pd = cfg.param_dtype
+        d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+        self.router = common.dense_init(generator, (d, e), pd, device)
+        self.w_gate = common.dense_init(generator, (e, d, ff), pd, device)
+        self.w_up = common.dense_init(generator, (e, d, ff), pd, device)
+        self.w_down = common.dense_init(generator, (e, ff, d), pd, device)
+        self.shared = (MLP(cfg, generator, device,
+                           d_ff=ff * cfg.num_shared_experts)
+                       if cfg.num_shared_experts else None)
+
+    def forward(self, x, cfg: ModelConfig):
+        """x: (B,S,d) → (out (B,S,d), aux load-balance loss, f32)."""
+        dt = cfg.compute_dtype
+        b, s, d = x.shape
+        e, topk = cfg.num_experts, cfg.num_experts_per_tok
+        t = b * s
+        g = group_size(t, cfg.moe_group_size)
+        n_groups = t // g
+        cap = max(1, int(g * topk / e * cfg.moe_capacity_factor))
+
+        xt = x.reshape(n_groups, g, d)
+        logits = torch.einsum("ngd,de->nge", xt, self.router.to(dt))
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_p, top_e = top_k_stable(probs, topk)                # (n,g,topk)
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        pg = top_p.to(dt)
+
+        # position of each (token, k) within its expert's queue
+        onehot = torch.nn.functional.one_hot(top_e, e).float()  # (n,g,k,e)
+        flat = onehot.reshape(n_groups, g * topk, e)
+        pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, g, topk, e)
+        pos = (pos * onehot).sum(-1)                            # (n,g,k)
+        keep = (pos < cap).float()
+        caphot = (pos[..., None] == torch.arange(
+            cap, device=x.device, dtype=pos.dtype)).float()     # (n,g,k,cap)
+        disp = torch.einsum("ngke,ngkc->ngec", onehot * keep[..., None],
+                            caphot)
+        comb = torch.einsum("ngke,ngkc->ngec",
+                            onehot * (keep * pg)[..., None], caphot)
+        xin = torch.einsum("ngec,ngd->necd", disp.to(dt), xt)   # (n,e,cap,d)
+        hg = torch.einsum("necd,edf->necf", xin, self.w_gate.to(dt))
+        hu = torch.einsum("necd,edf->necf", xin, self.w_up.to(dt))
+        ho = torch.einsum("necf,efd->necd", silu(hg) * hu,
+                          self.w_down.to(dt))
+        out = torch.einsum("ngec,necd->ngd", comb.to(dt), ho).reshape(b, s, d)
+        if self.shared is not None:
+            out = out + self.shared(x, cfg)
+        # auxiliary load-balance loss (Switch): e·Σ_e f_e·P_e
+        me = torch.nn.functional.one_hot(top_e[..., 0], e).float().mean(
+            dim=(0, 1))
+        pe = probs.mean(dim=(0, 1))
+        return out, e * (me * pe).sum()

@@ -1,10 +1,16 @@
-"""The GW serving engine: admission queue, buckets, and three schedulers.
+"""Batched serving engines: the LM `Engine`, and the GW engine with its
+admission queue, buckets, and three schedulers.
 
-Reference: ``repro/serve/engine.py``, its GW half (``GWServeConfig``,
-``_Request``, ``_new_stats``, the lane surgery ``_write_lanes`` /
-``_retire_lanes`` / ``_gather_lanes``, ``_service_tier``, ``_BucketRun``,
-``GWEngine`` and ``run_event_loop``).  The LM ``Engine`` and
-``ServeConfig`` are not here: they come with the LM substrate.
+Reference: ``repro/serve/engine.py`` (``ServeConfig``, ``Engine``,
+``GWServeConfig``, ``_Request``, ``_new_stats``, the lane surgery
+``_write_lanes`` / ``_retire_lanes`` / ``_gather_lanes``,
+``_service_tier``, ``_BucketRun``, ``GWEngine`` and ``run_event_loop``).
+
+`Engine` (LM) prefills a batch of equal-length prompts into preallocated
+caches and decodes token by token (greedy, or sampled with a temperature
+from a `torch.Generator` seeded with ``rng_seed``, where the reference
+draws ``jax.random.categorical``: the same Gumbel-max rule, other bits).
+A request that has emitted ``eos_id`` keeps repeating its token.
 
 `GWEngine` takes Gromov-Wasserstein requests over any geometry (uniform
 grids on the FGC path, low-rank factored costs, point clouds, dense
@@ -97,10 +103,85 @@ from repro_torch.core.sliced import (_canonical_keys, _sliced_core,
 from repro_torch.core.solver import (ConvergenceInfo, MirrorCarry,
                                      SolveControls, fields_of, info_of,
                                      init_carry, tensor_leaves)
+from repro_torch.models import lm
+from repro_torch.models.common import ModelConfig
 from repro_torch.serve.cache import Fingerprint, PlanCache, fingerprint
 from repro_torch.serve.calibration import HardnessCalibrator
 
 SERVICES = ("exact", "sliced", "refine")
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    batch_size: int = 4
+    temperature: float = 0.0      # 0 = greedy
+    eos_id: int = -1              # -1: never stop early
+    cache_dtype: str = "float32"
+
+
+class Engine:
+    """Prefill + decode for a batch of ``scfg.batch_size`` requests on the
+    device of ``params`` (an `repro_torch.models.lm.LM`)."""
+
+    def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig,
+                 rng_seed: int = 0):
+        self.params = params
+        self.cfg = cfg
+        self.scfg = scfg
+        self.device = next(params.parameters()).device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(rng_seed)
+
+    def _sample(self, logits):
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(logits.shape, generator=self.generator,
+                       device=self.device, dtype=logits.dtype)
+        u = u.clamp_min(torch.finfo(logits.dtype).tiny)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(logits / self.scfg.temperature + gumbel, dim=-1)
+
+    @torch.inference_mode()
+    def generate(self, prompts, max_new_tokens: int,
+                 return_logits: bool = False):
+        """prompts: (B, S0) token ids, all of one length (the caches hold
+        one length for the batch).  Returns the (B, max_new_tokens) tokens
+        as a numpy array, and with ``return_logits`` also the f32 logits
+        that chose each of them and the last step's, (B, max_new_tokens +
+        1, V) on the device.  With no new tokens it runs the prefill
+        alone."""
+        cfg, scfg = self.cfg, self.scfg
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                  device=self.device)
+        b = prompts.shape[0]
+        if b != scfg.batch_size:
+            raise ValueError(f"{b} prompts for a batch of {scfg.batch_size}")
+        caches = lm.cache_init(cfg, b, scfg.max_len, scfg.cache_dtype,
+                               self.device)
+        logits, caches = lm.prefill(self.params, {"tokens": prompts}, cfg,
+                                    caches)
+        seen = [logits]
+        out = []
+        tok = self._sample(logits)
+        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        for _ in range(max_new_tokens):
+            out.append(tok)
+            done = done | (tok == scfg.eos_id)
+            logits, caches = lm.decode_step(self.params,
+                                            {"tokens": tok[:, None]},
+                                            caches, cfg)
+            seen.append(logits)
+            tok = torch.where(done, tok, self._sample(logits))
+        tokens = (torch.stack(out, dim=1) if out else torch.zeros(
+            (b, 0), dtype=torch.long)).cpu().numpy()
+        if return_logits:
+            return tokens, torch.stack(seen, dim=1)
+        return tokens
 
 
 @dataclasses.dataclass

@@ -1568,3 +1568,70 @@ def test_wide_applies_take_their_own_bits_at_the_main_paths_shapes(
                 one = type(stack)(*(t[k:k + 1] for t in parts))
                 assert torch.equal(wide[k],
                                    one.apply_dist(x[k:k + 1], 1, 2)[0])
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate: every smoke architecture on the card
+# ---------------------------------------------------------------------------
+
+# f32 logits, card against CPU and prefill/decode against forward: the same
+# arithmetic summed in other orders (cuBLAS against the CPU's BLAS, a padded
+# cache against the chunked forward); xLSTM's sLSTM recurrence amplifies a
+# one-ulp change ~10× (tests/test_torch_models.py).  TF32 is off.
+_LM_F32 = dict(atol=1e-5, rtol=1e-5)
+_LM_XLSTM_F32 = dict(atol=5e-5, rtol=1e-4)
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _lm_smoke(arch):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    cpu = torch.Generator().manual_seed(3)
+    model = lm.init_params(cfg, cpu, "cpu")
+    b, s = 2, 40
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=cpu)}
+    else:
+        batch = {"embeddings": torch.randn((b, s, cfg.d_model),
+                                           generator=cpu) * 0.1}
+    return cfg, model, batch
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "phi3-mini-3.8b",
+                                  "starcoder2-15b", "olmo-1b", "qwen2-vl-72b",
+                                  "deepseek-v2-lite-16b", "mixtral-8x22b",
+                                  "xlstm-350m", "musicgen-medium",
+                                  "zamba2-7b"])
+def test_lm_smoke_on_the_card(dev, no_tf32, arch):
+    """The forward on the card against the CPU on the same weights, and a
+    prefill of 37 tokens plus 3 decode steps (past the smoke windows: the
+    ring buffer) against the card's forward."""
+    from repro_torch.models import lm
+    cfg, model, batch = _lm_smoke(arch)
+    bar = _LM_XLSTM_F32 if arch == "xlstm-350m" else _LM_F32
+    with torch.inference_mode():
+        want, _ = lm.forward(model, batch, cfg)
+        model = model.to(dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        full, aux = lm.forward(model, batch, cfg)
+        torch.testing.assert_close(full.cpu(), want, **bar)
+        assert torch.isfinite(aux)
+        caches = lm.cache_init(cfg, 2, 44, torch.float32, dev)
+        pre = {k: v[:, :37] for k, v in batch.items()}
+        lg, caches = lm.prefill(model, pre, cfg, caches)
+        torch.testing.assert_close(lg, full[:, 36], **bar)
+        for t in range(37, 40):
+            lg, caches = lm.decode_step(
+                model, {k: v[:, t:t + 1] for k, v in batch.items()}, caches,
+                cfg)
+            torch.testing.assert_close(lg, full[:, t], **bar)

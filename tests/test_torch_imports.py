@@ -32,4 +32,6 @@ def test_scan_covers_the_port():
             "fgc_scan.py", "lr_step.py", "convert.py",
             "half_step_times.py", "fgw.py", "losses.py", "ugw.py", "coot.py",
             "barycenter.py", "sliced.py", "engine.py", "cache.py",
-            "calibration.py", "serve.py"} <= names
+            "calibration.py", "serve.py", "attention.py", "mlp.py",
+            "ssm.py", "blocks.py", "lm.py", "common.py", "shapes.py",
+            "smollm_360m.py", "zamba2_7b.py"} <= names
