@@ -73,8 +73,8 @@ result line:
    beside the grid-less dense products), Run M (``gw_barycenter`` of four ``Grid1D``
    inputs of 2048–4096 points on a 4096-point support, annealed, adaptive)
    and Run N (sliced GW on two 10⁶-point clouds: the sorted method in f64
-   and f32 against the port's own CPU run and on a rotated, permuted
-   copy; ``sliced_plan`` on 8192 points and the warm start
+   and f32 against the port's own CPU run (on 16 directions) and on a
+   rotated, permuted copy; ``sliced_plan`` on 8192 points and the warm start
    ``FullCoupling.from_sliced`` gives a kernels solve, beside a cold one;
    the grid method's 32 lanes of ``entropic_gw_batch`` on the dense and
    the kernel FGC backends, kernels against plain lane by lane, against
@@ -115,7 +115,27 @@ result line:
    window and 16 decode steps that wrap it, against the forward over 4216
    tokens; zamba2's shared slot one storage over two periods, its caches
    per occurrence.  P(d), ``python -m repro_torch.launch.serve --arch
-   smollm-360m`` as a subprocess.
+   smollm-360m`` as a subprocess.  Then training, through
+   ``repro_torch.train.loop.train_step`` (Run Q; random weights from a
+   seeded generator, ``SyntheticLM`` batches): Q(a), smollm-360m at its
+   published config, 8 × 256 tokens, one AdamW step on the card against
+   the same step on the CPU from one state (scalars, moments and
+   parameters; a TF32 step must miss the bar), bf16 against f32 within
+   4× the CPU's own distance, 2 microbatches and remat against one
+   plain step (remat's peak lower), the FGW distillation term with a
+   second seeded model's hidden states as the teacher's, on B1/B2
+   against the plain route (launches against the code's formula, the
+   parameters moved by the term), ten bf16 steps overfitting the batch
+   (ce falls; step walls, tokens/s, peak memory), one bf16 step under
+   ``torch.profiler`` (busy share, launches).  Q(b), the nine
+   other architectures at P(b)'s widths and depths, 2 × 32 tokens: the
+   card's step against the CPU's forward and backward, each moment
+   within max(1e-4, 8× its one-ulp envelope).  Q(c), ``python -m
+   repro_torch.launch.train --arch smollm-360m --steps 8 --ckpt-every 4
+   --deterministic`` as subprocesses: SIGTERM after step 5 lands a
+   checkpoint, the same command resumes from it, and the final state
+   equals an uninterrupted run's bits; ``launch.serve --ckpt-dir``
+   serves it.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -1909,6 +1929,7 @@ M_CONTROLS = dict(eps=5e-3, outer_iters=5, gw_iters=5, sinkhorn_iters=100,
 #: skewed marginal (a signed third moment on every axis); the grid method
 #: at the reference's `_sliced_grid` config
 N_N, P_N, N_N_PLAN, P_N_GRID, GRID_N = 1_000_000, 128, 8192, 32, 512
+P_N_CPU = 16          # N(a)'s directions compared with the CPU's run
 N_AXES = (1.0, 2.0, 3.0)
 N_PLAN_SCALE = 0.125   # the plan run's clouds shrunk to O(1) costs
 N_GW_CONTROLS = dict(eps=5e-3, tol=1e-6, outer_iters=60, sinkhorn_iters=500)
@@ -2136,8 +2157,8 @@ def sliced_on(torch, core, pts, w, dev, dt, directions=None, **kw):
 
 def run_n(torch, np, ops, core, add, walls):
     """Run N: sliced GW.  (a) the sorted method on two 10⁶-point clouds,
-    f64 and f32, against the port's own CPU run and on a rotated, permuted
-    copy; (b) sliced_plan on 8192 points and the warm start it gives a
+    f64 and f32, against the port's own CPU run (on P_N_CPU directions)
+    and on a rotated, permuted copy; (b) sliced_plan on 8192 points and the warm start it gives a
     kernels entropic_gw; (c) the grid method, 32 lanes of
     entropic_gw_batch, kernels against plain, against (a) and twice."""
     a, wa = box_cloud(np, N_N, SEED + 90)
@@ -2153,18 +2174,23 @@ def run_n(torch, np, ops, core, add, walls):
         check(bool(torch.isfinite(est[name].profile).all()),
               f"Run N(a) {name}: non-finite profile")
     e64, e32 = est["float64"], est["float32"]
+    # the card against the CPU on P_N_CPU directions: the CPU's 10⁶-point
+    # run takes ~0.7 s a direction (~90 s for all 128)
+    card = sliced_on(torch, core, (a, b), (wa, wb), "cuda", torch.float64,
+                     n_proj=P_N_CPU)
     t0 = time.perf_counter()
     cpu = sliced_on(torch, core, (a, b), (wa, wb), "cpu", torch.float64,
-                    n_proj=P_N)
+                    n_proj=P_N_CPU)
     walls["N(a) float64 CPU"] = time.perf_counter() - t0
-    rel_est = abs(float(e64.estimate) - float(cpu.estimate)) / \
+    rel_est = abs(float(card.estimate) - float(cpu.estimate)) / \
         abs(float(cpu.estimate))
-    rel_prof = float(((e64.profile.cpu() - cpu.profile).abs()
+    rel_prof = float(((card.profile.cpu() - cpu.profile).abs()
                       / cpu.profile.abs()).max())
-    say(f"  Run N(a) float64: estimate {float(e64.estimate):.15e} (card) vs "
-        f"{float(cpu.estimate):.15e} (CPU, {walls['N(a) float64 CPU']:.1f} "
-        f"s), relative Δ {rel_est:.3e}, profile max relative Δ "
-        f"{rel_prof:.3e} (tolerance 1e-9)")
+    say(f"  Run N(a) float64, {P_N_CPU} directions: estimate "
+        f"{float(card.estimate):.15e} (card) vs {float(cpu.estimate):.15e} "
+        f"(CPU, {walls['N(a) float64 CPU']:.1f} s), relative Δ "
+        f"{rel_est:.3e}, profile max relative Δ {rel_prof:.3e} (tolerance "
+        "1e-9)")
     check(max(rel_est, rel_prof) <= 1e-9,
           "Run N(a): the card's estimate is not the CPU's")
     say(f"  Run N(a) float32 vs float64: estimate relative Δ "
@@ -3267,6 +3293,584 @@ def phase_lm_path(torch, np, ops, core):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, training: Run Q
+# ---------------------------------------------------------------------------
+
+# bf16 against f32 is compared on the batch's first row and first
+# ``bf16_seq`` tokens, on the card and on the CPU (whose bf16 step is slow)
+Q_A = dict(arch="smollm-360m", batch=8, seq=256, overfit=10, bf16_seq=64)
+Q_B = dict(batch=2, seq=32)
+Q_LR = 1e-3
+# f32 train step, card against CPU: the scalars (loss, ce, grad_norm, lr)
+# and the new moments m and v, each relative to its largest entry (v, a
+# square of the gradient, at twice the bar).  The same f32 arithmetic
+# summed in other orders (cuBLAS against the CPU's BLAS) over 32 layers
+# forward and back; TF32 rounds every product's operands to 10 bits and
+# must land outside.  The new parameters: where the gradient is neither
+# within the bar of zero nor near AdamW's eps, within bar·(lr + |p|)
+# (AdamW's first step moves a parameter by lr·g/(|g| + eps), ±lr whatever
+# |g| is, so two gradients a rounding apart that straddle zero differ by
+# 2·lr there; tests/_torch_train.py).
+Q_F32_BAR = 1e-4
+# The FGW term's f32 gradient: two f32 evaluations sit up to 1.4e-3 of a
+# parameter's largest gradient from the f64 one (tests/train_spreads.py),
+# the CPU tests' bar: the kernels' step against the plain route's.
+Q_GW_BAR = 3e-3
+Q_DRIVER = dict(steps=8, ckpt_every=4, stop_after=5)
+
+
+def q_tcfg(loop, optim, **kw):
+    base = dict(microbatches=1, remat=False, optimizer=optim.OptimizerConfig(
+        lr=Q_LR, warmup_steps=1, total_steps=100))
+    base.update(kw)
+    return loop.TrainConfig(**base)
+
+
+def q_state(torch, lm, loop, optim, cfg, init, dev, tcfg):
+    """A fresh train state on ``dev``: copies of ``init`` (name → tensor)
+    and zero moments."""
+    model = lm.LM(cfg, None, device="meta")
+    model.load_state_dict({k: v.detach().to(dev, copy=True)
+                           for k, v in init.items()}, strict=True,
+                          assign=True)
+    return loop.TrainState(model, optim.init(dict(model.named_parameters()),
+                                             tcfg.optimizer), 0)
+
+
+def q_step(torch, loop, state, batch, cfg, tcfg):
+    """One train step with the launch counts and the device's peak memory
+    read around it: (metrics, wall s, peak GiB, GiB held before it; NaN
+    for a step on the CPU)."""
+    cuda = next(iter(state.params().values())).is_cuda
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    metrics = loop.train_step(state, batch, cfg, tcfg)
+    if cuda:
+        torch.cuda.synchronize()
+        return (metrics, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2**30, held)
+    return metrics, time.perf_counter() - t0, math.nan, math.nan
+
+
+def q_rel(torch, got, want) -> float:
+    """max |got − want| over max |want| (want's device)."""
+    want = want.detach().float()
+    got = got.detach().float().to(want.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def q_scalars(torch, got, want, keys=("loss", "ce", "grad_norm", "lr")):
+    return max(q_rel(torch, got[k], want[k]) for k in keys)
+
+
+def q_moments(torch, got, want, dist=None):
+    """(m's, v's largest per-tensor distance, the worst tensor of m)."""
+    dist = dist or q_rel
+    dm = {k: dist(torch, got.opt.m[k], v) for k, v in want.opt.m.items()}
+    dv = max(dist(torch, got.opt.v[k], v) for k, v in want.opt.v.items())
+    worst = max(dm, key=dm.get)
+    return dm[worst], dv, worst
+
+
+def q_params(torch, got, want, bar, eps=1e-8):
+    """The largest |Δp| / (bar·(lr + |p|)) over the entries whose gradient
+    (m) is neither within ``bar`` of zero nor near eps; ≤ 1 passes."""
+    worst = 0.0
+    gp = got.params()
+    for k, p in want.params().items():
+        m = want.opt.m[k].abs()
+        away = m > max(bar * float(m.max()), 0.1 * 1e3 * eps)
+        if not bool(away.any()):
+            continue
+        p = p.detach()
+        d = (gp[k].detach().to(p.device) - p).abs()[away]
+        worst = max(worst, float((d / (bar * (Q_LR + p.abs()[away]))).max()))
+    return worst
+
+
+def q_median_moment(torch, got, want):
+    """The median over tensors of m's distance relative to its largest
+    entry (a bf16 step's rounding sets a few tensors' maxima)."""
+    d = sorted(q_rel(torch, got.opt.m[k], v) for k, v in
+               want.opt.m.items())
+    return d[len(d) // 2]
+
+
+def q_batch(np, pipeline, cfg, batch, seq):
+    return pipeline.SyntheticLM(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=SEED)).batch(0)
+
+
+def run_q_a(torch, np, ops, core, lm, loop, optim, pipeline, configs, add,
+            walls):
+    """Q(a): smollm-360m at its published config through train_step."""
+    a = Q_A
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(configs.get(a["arch"]), dtype="float32")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    init = {k: v.detach() for k, v in
+            lm.init_params(cfg, gen, dev).state_dict().items()}
+    n_params = sum(v.numel() for v in init.values())
+    batch = q_batch(np, pipeline, cfg, a["batch"], a["seq"])
+    tokens = a["batch"] * a["seq"]
+    tcfg = q_tcfg(loop, optim)
+    say(f"  Run Q(a) {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters; batch {a['batch']} × {a['seq']} tokens of "
+        f"SyntheticLM (seed {SEED}, step 0); AdamW lr {Q_LR}, one step from "
+        "the same state unless said")
+
+    # f32: card, CPU, TF32 control
+    st32 = q_state(torch, lm, loop, optim, cfg, init, dev, tcfg)
+    m32, wall32, peak32, held32 = q_step(torch, loop, st32, batch, cfg, tcfg)
+    walls["Q(a) f32 step"] = wall32
+    say(f"  Run Q(a) f32 step on the card: {wall32:.3f} s, "
+        f"{tokens / wall32:.0f} tokens/s, peak {peak32:.3f} GiB ({held32:.3f}"
+        f" held before it); loss {float(m32['loss']):.6f}, ce "
+        f"{float(m32['ce']):.6f}, grad_norm {float(m32['grad_norm']):.6f}, "
+        f"lr {float(m32['lr']):.3e}")
+    cpu_st = q_state(torch, lm, loop, optim, cfg, init, cpu, tcfg)
+    mc, wall_c, _, _ = q_step(torch, loop, cpu_st, batch, cfg, tcfg)
+    walls["Q(a) CPU f32 step"] = wall_c
+    d_s = q_scalars(torch, m32, mc)
+    d_m, d_v, worst = q_moments(torch, st32, cpu_st)
+    r_p = q_params(torch, st32, cpu_st, Q_F32_BAR)
+    say(f"  Run Q(a) f32, card against the CPU's step ({wall_c:.1f} s): "
+        f"scalars {d_s:.3e}, m {d_m:.3e} (worst {worst}), v {d_v:.3e}, "
+        f"parameters {r_p:.3f} of their bar")
+    p_check("Run Q(a) f32 scalars and m, card against CPU", max(d_s, d_m),
+            Q_F32_BAR, "f32 sums in other orders")
+    p_check("Run Q(a) f32 v, card against CPU", d_v, 2 * Q_F32_BAR,
+            "a square of the gradient")
+    p_check("Run Q(a) f32 parameters, card against CPU (ratio to the bar)",
+            r_p, 1.0, "bar·(lr + |p|) away from g = 0")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        st_tf = q_state(torch, lm, loop, optim, cfg, init, dev, tcfg)
+        mt, walls["Q(a) TF32 step"], _, _ = q_step(torch, loop, st_tf, batch,
+                                                   cfg, tcfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d_tf = max(q_scalars(torch, mt, mc), q_moments(torch, st_tf, cpu_st)[0])
+    say(f"  Run Q(a) TF32 control: the step with TF32 on, {d_tf:.3e} from "
+        f"the CPU's (must exceed the f32 bar {Q_F32_BAR:.1e})")
+    check(d_tf > Q_F32_BAR, "Run Q(a): a TF32 step passes the f32 bar, "
+          "which then cannot tell f32 from TF32")
+    del st_tf, cpu_st
+
+    # bf16 against f32: on the card at full batch, and the bar from the
+    # CPU's own bf16-against-f32 distance on the batch's first rows
+    small = {k: v[:1, :a["bf16_seq"]] for k, v in batch.items()}
+    dists = {}
+    for where, d in (("CPU", cpu), ("card", dev)):
+        sts = {}
+        t0 = time.perf_counter()
+        for c in (cfg, cfg16):
+            sts[c.dtype] = q_state(torch, lm, loop, optim, c, init, d, tcfg)
+            sts[c.dtype + " metrics"] = q_step(torch, loop, sts[c.dtype],
+                                               small, c, tcfg)[0]
+        walls[f"Q(a) {where} f32 and bf16 steps on 1 × {a['bf16_seq']}"] \
+            = time.perf_counter() - t0
+        dists[where] = (q_rel(torch, sts["bfloat16 metrics"]["loss"],
+                              sts["float32 metrics"]["loss"]),
+                        q_median_moment(torch, sts["bfloat16"],
+                                        sts["float32"]))
+        del sts
+    st16 = q_state(torch, lm, loop, optim, cfg16, init, dev, tcfg)
+    m16, wall16, peak16, held16 = q_step(torch, loop, st16, batch, cfg16,
+                                         tcfg)
+    walls["Q(a) bf16 step"] = wall16
+    full16 = (q_rel(torch, m16["loss"], m32["loss"]),
+              q_median_moment(torch, st16, st32))
+    say(f"  Run Q(a) bf16 step on the card: {wall16:.3f} s, "
+        f"{tokens / wall16:.0f} tokens/s, peak {peak16:.3f} GiB "
+        f"({held16:.3f} held before it); loss {float(m16['loss']):.6f}; "
+        f"from f32: loss {full16[0]:.3e}, m's median tensor {full16[1]:.3e}")
+    for i, what in enumerate(("loss", "m's median tensor")):
+        p_check(f"Run Q(a) bf16 against f32 on 1 × {a['bf16_seq']} tokens, "
+                f"{what}", dists["card"][i],
+                P_BF16_FACTOR * dists["CPU"][i],
+                f"{P_BF16_FACTOR:g}× the CPU's {dists['CPU'][i]:.3e}")
+    check(all(math.isfinite(float(v)) for v in m16.values()),
+          "Run Q(a): a bf16 metric is not finite")
+    del st16
+
+    # microbatches and remat
+    for label, kw in (("2 microbatches", dict(microbatches=2)),
+                      ("remat", dict(remat=True))):
+        t = q_tcfg(loop, optim, **kw)
+        st = q_state(torch, lm, loop, optim, cfg, init, dev, t)
+        mk, wall, peak, held = q_step(torch, loop, st, batch, cfg, t)
+        walls[f"Q(a) f32 {label}"] = wall
+        # ce and aux are the last microbatch's (the reference's metrics)
+        d = max(q_scalars(torch, mk, m32, ("loss", "grad_norm", "lr")),
+                q_moments(torch, st, st32)[0])
+        say(f"  Run Q(a) f32 {label}: {wall:.3f} s, peak {peak:.3f} GiB "
+            f"({held:.3f} held before it), {d:.3e} from one microbatch "
+            "without remat (loss, grad_norm, lr and m)")
+        p_check(f"Run Q(a) {label} against the plain step", d, Q_F32_BAR,
+                "f32 sums in other orders")
+        if label == "remat":
+            # what the step adds to the memory held before it
+            say(f"  Run Q(a) remat's step adds {peak - held:.3f} GiB to what "
+                f"is held, against {peak32 - held32:.3f} without")
+            check(peak - held < peak32 - held32,
+                  "Run Q(a): remat does not lower the step's peak")
+        del st
+
+    # the FGW term: kernels against plain, and against no term
+    gen.manual_seed(SEED + 1)
+    teacher = lm.init_params(cfg, gen, dev)
+    with torch.inference_mode():
+        _, _, hid = lm.forward(teacher, loop.to_device(batch, dev), cfg,
+                               return_hidden=True)
+    gw_batch = dict(batch, teacher_h=hid.float().clone())
+    del teacher, hid
+    out = {}
+    for route, backend in (("kernels", "auto"), ("plain", "torch")):
+        t = q_tcfg(loop, optim, gw_align_weight=0.5, gw_align=(
+            dataclasses.replace(loop.TrainConfig().gw_align,
+                                sinkhorn_backend=backend)))
+        st = q_state(torch, lm, loop, optim, cfg, init, dev, t)
+        with Recorded(core.sinkhorn, "_chunked_loop") as loops, \
+                Recorded(core.solver, "neumann_series") as series:
+            (mk, wall, peak, _), counts, _ = run_path(
+                torch, ops, f"Run Q(a) f32 step with the FGW term, {route}",
+                lambda: q_step(torch, loop, st, gw_batch, cfg, t))
+        walls[f"Q(a) FGW {route}"] = wall
+        sweeps = sum(max(used, default=0) for _, used in loops.out)
+        terms = [n for _, n in series.out]
+        out[route] = (mk, st, counts)
+        say(f"  Run Q(a) FGW {route}: {wall:.3f} s, peak {peak:.3f} GiB, "
+            f"gw_align {float(mk['gw_align']):.6f}, loss "
+            f"{float(mk['loss']):.6f}; {sweeps} inner updates a side, "
+            f"Neumann terms {terms}")
+        if route == "kernels":
+            add(counts)
+            g = t.gw_align
+            want = {k: 0 for k in counts}
+            want.update(sinkhorn_row_update=g.outer_iters * g.sinkhorn_iters,
+                        sinkhorn_col_update=g.outer_iters * g.sinkhorn_iters)
+            say(f"  Run Q(a) FGW launches {counts}, expected {want} (outer "
+                f"steps × Sinkhorn steps, one launch an update for the "
+                f"{a['batch']} lanes; the backward launches none)")
+            check(counts == want and sweeps == want["sinkhorn_row_update"],
+                  "Run Q(a): the FGW term's launches differ from the code's")
+        else:
+            check(sum(counts.values()) == 0, "Run Q(a): the plain route "
+                  "launched a kernel")
+    (mk, stk, _), (mp, stp, _) = out["kernels"], out["plain"]
+    d_gw = max(q_scalars(torch, mk, mp, ("loss", "ce", "grad_norm",
+                                         "gw_align")),
+               q_moments(torch, stk, stp)[0])
+    p_check("Run Q(a) FGW step, kernels against plain", d_gw, Q_GW_BAR,
+            "the f32 implicit gradient's spread")
+    with torch.no_grad():
+        moved = float(optim.global_norm({k: p - st32.params()[k] for k, p
+                                         in stk.params().items()}))
+    say(f"  Run Q(a) FGW: the parameters {moved:.3e} (global norm) from the "
+        "step without the term")
+    check(math.isfinite(float(mk["gw_align"])) and moved > 0,
+          "Run Q(a): the FGW term is not finite or moves nothing")
+    del out, stk, stp, st32
+
+    # ten bf16 steps overfitting the batch, timed; one more profiled
+    st = q_state(torch, lm, loop, optim, cfg16, init, dev, tcfg)
+    ces, ts = [], []
+    for _ in range(a["overfit"]):
+        mk, wall, peak, _ = q_step(torch, loop, st, batch, cfg16, tcfg)
+        ces.append(float(mk["ce"]))
+        ts.append(wall)
+    walls["Q(a) 10 bf16 steps"] = sum(ts)
+    med = sorted(ts[1:])[len(ts[1:]) // 2]
+    say(f"  Run Q(a) {a['overfit']} bf16 steps on one batch: ce "
+        + " ".join(f"{c:.4f}" for c in ces) + f"; step walls "
+        + " ".join(f"{t * 1e3:.1f}" for t in ts) + f" ms (median after the "
+        f"first {med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s), peak "
+        f"{peak:.3f} GiB")
+    check(ces[-1] < ces[0] and all(math.isfinite(c) for c in ces),
+          "Run Q(a): ce does not fall over ten steps on one batch")
+    ts = [q_step(torch, loop, st, batch, cfg, tcfg)[1] for _ in range(3)]
+    walls["Q(a) 3 f32 steps"] = sum(ts)
+    med = sorted(ts)[1]
+    say(f"  Run Q(a) 3 more steps in f32: " + " ".join(
+        f"{t * 1e3:.1f}" for t in ts) + f" ms (median {med * 1e3:.1f} ms, "
+        f"{tokens / med:.0f} tokens/s)")
+    # one profiled step in the config's own dtype (the profiler's
+    # processing of a step's ~14 000 device activities takes ~10 s)
+    t0 = time.perf_counter()
+    rows = profile_solve(torch, "Run Q(a) one bf16 step", lambda:
+                         loop.train_step(st, batch, cfg16, tcfg))
+    if rows is not None:
+        kernels = sum(n for name, (_, n) in rows.items()
+                      if not name.startswith(("Memcpy", "Memset")))
+        say(f"  Run Q(a) bf16: {kernels} kernel launches a step")
+    walls["Q(a) profiled step"] = time.perf_counter() - t0
+    del st, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def q_nudge_(torch, params, seed):
+    """Move every weight of ``params`` one ulp up or down (seeded), in
+    place."""
+    gen = torch.Generator(device=next(iter(params.values())).device)
+    gen.manual_seed(seed)
+    for p in params.values():
+        up = torch.randint(0, 2, p.shape, generator=gen,
+                           device=p.device).bool()
+        p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf).to(
+            p.dtype)))
+
+
+def q_grads(torch, lm, loop, optim, cfg, params, batch, tcfg):
+    """A forward and backward on ``params`` (name → tensor, taken into a
+    model on their device): (loss, grad_norm, name → gradient, the clip
+    scale)."""
+    dev = next(iter(params.values())).device
+    model = lm.LM(cfg, None, device="meta")
+    model.load_state_dict(params, strict=True, assign=True)
+    loss, _ = loop._microbatch_loss(model, loop.to_device(batch, dev), cfg,
+                                    tcfg)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    norm = optim.global_norm(grads)
+    return (loss.detach(), norm, grads,
+            optim.clip_scale(norm, tcfg.optimizer.grad_clip))
+
+
+def q_first_moment(g, scale, b1):
+    """The first moment AdamW's first step holds: (g·s)·(1 − b1), the
+    optimizer's own expression from zero moments."""
+    return (g * scale) * (1 - b1)
+
+
+def run_q_b(torch, np, lm, loop, optim, configs, walls):
+    """Q(b): every other architecture at its published widths, depth cut
+    as in P(b): one train step on the card against the CPU's forward and
+    backward (the first moment its step would hold), each tensor within
+    max(Q_F32_BAR, P_ENVELOPE × its one-ulp envelope), measured on the
+    card from the same weights moved one ulp.  The card holds one step's
+    state, then the moments and the envelope's gradients: a 2.9 · 10⁹-
+    parameter model's step needs ~58 GiB."""
+    b = Q_B
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    tcfg = q_tcfg(loop, optim)
+    b1 = tcfg.optimizer.b1
+    for arch in configs.ARCHS:
+        if arch == Q_A["arch"]:
+            continue
+        t0 = time.perf_counter()
+        pub = configs.get(arch)
+        cfg = dataclasses.replace(p_config(pub), dtype="float32")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = lm.init_params(cfg, gen, dev)
+        params = dict(model.named_parameters())
+        n_params = sum(v.numel() for v in params.values())
+        cpu_init = {k: v.detach().to(cpu, copy=True)
+                    for k, v in params.items()}
+        batch = p_inputs(torch, np, cfg, b["batch"], b["seq"], SEED, dev)
+        batch["labels"] = torch.tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (b["batch"], b["seq"])), device=dev)
+        st = loop.TrainState(model, optim.init(params, tcfg.optimizer), 0)
+        mk, wall, peak, held = q_step(torch, loop, st, batch, cfg, tcfg)
+        m_card = st.opt.m
+        del model, params, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the envelope: the weights one ulp away, on the card
+        nudged = {k: v.to(dev, copy=True) for k, v in cpu_init.items()}
+        q_nudge_(torch, nudged, SEED)
+        le, ne, ge, se = q_grads(torch, lm, loop, optim, cfg, nudged, batch,
+                                 tcfg)
+        env = {k: q_rel(torch, q_first_moment(g, se, b1), m_card[k])
+               for k, g in ge.items()}
+        env_s = max(q_rel(torch, le, mk["loss"]),
+                    q_rel(torch, ne, mk["grad_norm"]))
+        del nudged, ge
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        lc, nc, gcpu, sc = q_grads(torch, lm, loop, optim, cfg, cpu_init,
+                                   batch, tcfg)
+        # the CPU's gradients moved to the card, where (g·s)·(1 − b1), two
+        # correctly rounded products, has the CPU's bits and costs no CPU
+        # pass over the model
+        sc = sc.to(dev)
+        ratio = {k: q_rel(torch, m_card[k], q_first_moment(g.to(dev), sc, b1))
+                 / max(Q_F32_BAR, P_ENVELOPE * env[k])
+                 for k, g in gcpu.items()}
+        t_cpu = time.perf_counter() - t1
+        worst = max(ratio, key=ratio.get)
+        d_s = max(q_rel(torch, mk["loss"], lc),
+                  q_rel(torch, mk["grad_norm"], nc))
+        r_s = d_s / max(Q_F32_BAR, P_ENVELOPE * env_s)
+        wall_all = time.perf_counter() - t0
+        walls[f"Q(b) {arch}"] = wall_all
+        say(f"  Run Q(b) {arch} ({pub.num_layers} → {cfg.num_layers} layers"
+            f"; {n_params} parameters; {b['batch']} × {b['seq']} tokens): "
+            f"step {wall:.3f} s, peak {peak:.3f} GiB ({held:.3f} held); "
+            f"loss {float(mk['loss']):.6f}; card against the CPU's forward "
+            f"and backward ({t_cpu:.1f} s): loss and grad_norm {d_s:.3e} "
+            f"({r_s:.3f} of the bar, envelope {env_s:.1e}), m's worst "
+            f"tensor {ratio[worst]:.3f} of its bar ({worst}, envelope "
+            f"{env[worst]:.1e}; the largest envelope "
+            f"{max(env.values()):.1e}); {wall_all:.1f} s")
+        check(r_s <= 1 and ratio[worst] <= 1,
+              f"Run Q(b) {arch}: the step over its bar")
+        check(all(math.isfinite(float(v)) for v in mk.values()),
+              f"Run Q(b) {arch}: a metric is not finite")
+        del m_card, cpu_init, gcpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def q_leaves(root, step):
+    d = Path(root) / f"step_{step:08d}"
+    man = json.loads((d / "manifest.json").read_text())
+    return {e["key"]: d / e["file"] for e in man["leaves"]}
+
+
+def run_q_driver(torch, np, walls):
+    """Q(c): the train driver on the card, as subprocesses: a run stopped
+    by SIGTERM after step Q_DRIVER["stop_after"] and resumed, against an
+    uninterrupted one; then the LM driver serving the checkpoint."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    q = Q_DRIVER
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           Q_A["arch"], "--steps", str(q["steps"]), "--ckpt-every",
+           str(q["ckpt_every"]), "--log-every", "1", "--deterministic"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="run_q_"))
+    procs = []
+    try:
+        # the uninterrupted run beside the interrupted one, on the same card
+        t0 = t_whole = time.perf_counter()
+        whole = subprocess.Popen(cmd + ["--ckpt-dir", str(tmp / "whole")],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        procs.append(whole)
+        cut = tmp / "cut"
+        proc = subprocess.Popen(cmd + ["--ckpt-dir", str(cut)], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        for ln in proc.stdout:
+            if ln.startswith(f"step {q['stop_after']:5d} "):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, err = proc.communicate(timeout=300)
+        walls["Q(c) stopped"] = time.perf_counter() - t0
+        landed = CheckpointManager(str(cut)).latest_step()
+        say(f"  Run Q(c) {' '.join(cmd[1:])}, twice at once: one stopped by "
+            f"SIGTERM after step {q['stop_after']}'s line, exit "
+            f"{proc.returncode}, checkpoint at step {landed} "
+            f"({walls['Q(c) stopped']:.1f} s)")
+        check(proc.returncode == 143 and landed is not None
+              and q["stop_after"] <= landed < q["steps"],
+              "Run Q(c): SIGTERM did not land a checkpoint: " + err[-2000:])
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd + ["--ckpt-dir", str(cut)], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=300)
+        walls["Q(c) resumed"] = time.perf_counter() - t0
+        say(f"  Run Q(c) the same command again: exit {again.returncode}, "
+            f"{walls['Q(c) resumed']:.1f} s; "
+            + "; ".join(ln for ln in again.stdout.splitlines()
+                        if ln.startswith("resumed")))
+        check(again.returncode == 0 and f"resumed from checkpoint step "
+              f"{landed}" in again.stdout, "Run Q(c): the resume failed: "
+              + again.stderr[-2000:])
+        out, err = whole.communicate(timeout=300)
+        walls["Q(c) uninterrupted"] = time.perf_counter() - t_whole
+        lines = out.splitlines()
+        say(f"  Run Q(c) the uninterrupted run: exit {whole.returncode}, "
+            f"{walls['Q(c) uninterrupted']:.1f} s from its start; first and "
+            "last lines:")
+        for ln in lines[:2] + lines[-2:]:
+            say(f"    {ln}")
+        check(whole.returncode == 0, "Run Q(c): the train driver failed: "
+              + err[-2000:])
+        got, want = q_leaves(cut, q["steps"]), q_leaves(tmp / "whole",
+                                                         q["steps"])
+        same = sum(np.array_equal(np.load(got[k]), np.load(want[k]))
+                   for k in want)
+        say(f"  Run Q(c) final state (step {q['steps']}): {same} of "
+            f"{len(want)} leaves (parameters, moments, step counts) the "
+            "uninterrupted run's bits (both runs under "
+            "torch.use_deterministic_algorithms)")
+        check(got.keys() == want.keys() and same == len(want),
+              "Run Q(c): the resumed run's final state is not the "
+              "uninterrupted run's")
+        serve = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 Q_A["arch"], "--ckpt-dir", str(cut), "--batch", "4",
+                 "--prompt-len", "64", "--max-new", "16"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(serve, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        walls["Q(c) serve"] = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        say(f"  Run Q(c) {' '.join(serve[1:5])} --ckpt-dir <the resumed "
+            f"run's> ...: exit {proc.returncode}, {walls['Q(c) serve']:.1f} "
+            "s; " + "; ".join(lines[:1] + lines[-1:]))
+        check(proc.returncode == 0 and lines[0] == "restored params from "
+              f"step {q['steps']}" and sum(ln.startswith("request ")
+                                           for ln in lines) == 4,
+              "Run Q(c): the LM driver did not serve the checkpoint: "
+              + proc.stderr[-2000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_train_path(torch, np, ops, core):
+    """Run Q: training, through repro_torch.train.loop.train_step."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as optim
+
+    say("phase 3, training: repro_torch.train.loop.train_step (Run Q; B1/B2 "
+        "under the FGW distillation term, no other kernel)")
+    start = time.perf_counter()
+    walls = {}
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    run_q_a(torch, np, ops, core, lm, loop, optim, pipeline, configs, add,
+            walls)
+    before = dict(ops.LAUNCHES)
+    run_q_b(torch, np, lm, loop, optim, configs, walls)
+    check(ops.LAUNCHES == before, "Run Q(b) launched a kernel of B1–B7")
+    run_q_driver(torch, np, walls)
+    say(f"  Run Q with its checks: {time.perf_counter() - start:.1f} s of "
+        "wall in all")
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3621,7 +4225,8 @@ def main() -> int:
         launches, walls = phase_main_path(torch, np, ops, core, gen)
         for phase in (phase_lowrank_path, phase_batch_path,
                       phase_grad_path, phase_variants_path,
-                      phase_serving_path, phase_lm_path):
+                      phase_serving_path, phase_lm_path,
+                      phase_train_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v

@@ -6,7 +6,9 @@ factored couplings).  Each function takes the
 reference object's fields as plain Python values and numpy arrays (so this
 module needs nothing of JAX) and returns the port's object on ``device``.
 A language model's parameters and caches carry across with `lm_params`,
-`lm_model` and `lm_caches`, its config with `model_config`.
+`lm_model` and `lm_caches`, its config with `model_config`, and a
+trainer's whole state (parameters, AdamW moments, step counts) with
+`train_state`.
 A solve begun in the reference can be resumed here: convert its
 ``MirrorCarry`` leaves with `mirror_carry` and hand the result to
 `repro_torch.core.gw_plan_segment` (one problem's carry) or, as
@@ -32,6 +34,8 @@ from repro_torch.core.ugw import UGWConfig
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import GWServeConfig
+from repro_torch.train.loop import TrainState
+from repro_torch.train.optimizer import AdamWState
 
 #: the reference's FGC backend names → the port's
 FGC_BACKEND_NAMES = {"scan": "scan", "cumsum": "cumsum",
@@ -262,3 +266,19 @@ def lm_caches(tree, cfg: ModelConfig, device=None) -> dict:
             "body": [{f"slot{si}": _cache(tree["body"][f"slot{si}"], dev, r)
                       for si in range(len(cfg.block_template))}
                      for r in range(cfg.repeats)]}
+
+
+def train_state(tree, cfg: ModelConfig, device=None):
+    """A port `repro_torch.train.loop.TrainState` from the reference's
+    ``train.loop.init_state`` tree (leaves as numpy arrays): the
+    parameters through `lm_model`, the moments ``opt.m``, ``opt.v`` (and
+    ``opt.ef``) split as `lm_params` splits the parameters, keyed by the
+    model's parameter names, and the step counts as ints."""
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    return TrainState(
+        model=lm_model(tree["params"], cfg, dev),
+        opt=AdamWState(m=lm_params(opt["m"], dev), v=lm_params(opt["v"], dev),
+                       step=int(np.asarray(opt["step"])),
+                       ef=lm_params(opt["ef"], dev) if "ef" in opt else None),
+        step=int(np.asarray(tree["step"])))

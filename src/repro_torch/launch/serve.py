@@ -4,8 +4,10 @@ Reference: ``repro/launch/serve.py`` (``_gw_stream``, ``gw_main`` and
 ``main``).  Both run on the CUDA device unless ``--device`` says
 otherwise.
 
-LM generation: a randomly initialised model (seeded ``torch.Generator``)
-answers a batch of random equal-length prompts through
+LM generation: a randomly initialised model (seeded ``torch.Generator``),
+or with ``--ckpt-dir`` the parameters of the latest checkpoint that
+`repro_torch.launch.train` wrote there, answers a batch of random
+equal-length prompts through
 `repro_torch.serve.engine.Engine`; on the CPU the model computes in f32,
 as the reference's does there:
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.geometry import PointCloudGeometry
 from repro_torch.core.gw import GWConfig, resolve_device
 from repro_torch.models import lm
@@ -109,9 +112,6 @@ def gw_main(args) -> None:
 def lm_main(args) -> None:
     """Generate ``--max-new`` tokens for ``--batch`` random prompts with a
     randomly initialised ``--arch`` model."""
-    if args.ckpt_dir:
-        sys.exit("repro_torch.launch.serve: --ckpt-dir needs the checkpoint "
-                 "manager, which comes with the trainer (ROADMAP A14)")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
@@ -121,6 +121,17 @@ def lm_main(args) -> None:
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, device)
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if mgr.latest_step() is None:
+            sys.exit(f"repro_torch.launch.serve: no checkpoint in "
+                     f"{args.ckpt_dir} (repro_torch.launch.train --ckpt-dir "
+                     "writes them)")
+        restored = mgr.restore({"params": dict(params.named_parameters())})
+        with torch.no_grad():
+            for k, p in params.named_parameters():
+                p.copy_(restored["params"][k])
+        print(f"restored params from step {mgr.latest_step()}", flush=True)
     engine = Engine(params, cfg,
                     ServeConfig(max_len=args.max_len, batch_size=args.batch,
                                 temperature=args.temperature),
@@ -153,8 +164,8 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="restore trained params (not ported yet: the "
-                         "checkpoint manager comes with the trainer)")
+                    help="restore trained params (a checkpoint of "
+                         "repro_torch.launch.train) instead of random init")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="the engine's device (default: the CUDA device)")

@@ -14,6 +14,7 @@ layer cache, …} for each repeat]}``.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, mlp, ssm
 from repro_torch.models.common import ModelConfig, apply_norm, norm_params
@@ -21,6 +22,8 @@ from repro_torch.models.common import ModelConfig, apply_norm, norm_params
 ATTENTION_KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe",
                    "shared_attn")
 MIXERS = {"mlstm": ssm.MLSTM, "slstm": ssm.SLSTM, "mamba": ssm.Mamba2}
+#: the reference's ``gather_dtype``: the wire dtype of the in-loop gather
+GATHER_DTYPE = torch.bfloat16
 
 
 class Layer(torch.nn.Module):
@@ -102,8 +105,17 @@ class Stack(torch.nn.Module):
             self.scanned[key][rep]
 
     def forward(self, x, positions, cfg: ModelConfig, caches=None,
-                q_offset: int = 0):
-        """Returns (x, new_caches, aux_sum)."""
+                q_offset: int = 0, remat: bool = False,
+                gather_params: bool = False):
+        """Returns (x, new_caches, aux_sum).
+
+        ``remat``: each template period runs under
+        ``torch.utils.checkpoint`` (nothing saved, recomputed in the
+        backward pass), the reference's ``jax.checkpoint(body,
+        nothing_saveable)`` over its scan body.  ``gather_params``: a
+        non-shared slot's parameters are cast to `GATHER_DTYPE` inside
+        the period, the reference's ZeRO-3 gather on its bf16 wire; on one
+        device that is the cast alone, a change in the math."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_pro = []
         for li, layer in enumerate(self.prologue):
@@ -113,14 +125,29 @@ class Stack(torch.nn.Module):
             aux_total = aux_total + aux
         new_body = []
         for rep in range(cfg.repeats):
-            step = {}
-            for si in range(len(cfg.block_template)):
-                c = caches["body"][rep][f"slot{si}"] if caches else None
-                x, nc, aux = self.layer(si, rep)(x, positions, cfg, cache=c,
-                                                 q_offset=q_offset)
-                step[f"slot{si}"] = nc
-                aux_total = aux_total + aux
-            new_body.append(step)
+            def period(h, aux_acc, rep=rep):
+                step = {}
+                for si in range(len(cfg.block_template)):
+                    c = caches["body"][rep][f"slot{si}"] if caches else None
+                    layer = self.layer(si, rep)
+                    args = (h, positions, cfg)
+                    kw = {"cache": c, "q_offset": q_offset}
+                    if gather_params and si not in cfg.shared_slots:
+                        h, nc, aux = torch.func.functional_call(
+                            layer, {n: p.to(GATHER_DTYPE) for n, p in
+                                    layer.named_parameters()}, args, kw)
+                    else:
+                        h, nc, aux = layer(*args, **kw)
+                    step[f"slot{si}"] = nc
+                    aux_acc = aux_acc + aux
+                return h, aux_acc, step
+            if remat and caches is None:
+                x, aux_total = torch.utils.checkpoint.checkpoint(
+                    lambda h, a, period=period: period(h, a)[:2], x,
+                    aux_total, use_reentrant=False)
+            else:
+                x, aux_total, step = period(x, aux_total)
+                new_body.append(step)
         new_caches = ({"prologue": new_pro, "body": new_body}
                       if caches else None)
         return x, new_caches, aux_total

@@ -82,12 +82,15 @@ def _default_positions(batch, cfg: ModelConfig, seq_len: int,
     return pos
 
 
-def forward(model: LM, batch, cfg: ModelConfig, return_hidden: bool = False):
-    """→ (logits (B,S,V) f32, aux_loss[, hidden (B,S,d)])."""
+def forward(model: LM, batch, cfg: ModelConfig, return_hidden: bool = False,
+            remat: bool = False, gather_params: bool = False):
+    """→ (logits (B,S,V) f32, aux_loss[, hidden (B,S,d)]).  ``remat`` and
+    ``gather_params`` as in `repro_torch.models.blocks.Stack.forward`."""
     x = _embed(model, batch, cfg)
     b, s = x.shape[:2]
     positions = _default_positions(batch, cfg, s, b, x.device)
-    x, _, aux = model.stack(x, positions, cfg)
+    x, _, aux = model.stack(x, positions, cfg, remat=remat,
+                            gather_params=gather_params)
     x = apply_norm(model.ln_f, x, cfg)
     logits = _head(model, x, cfg).float()
     if return_hidden:
@@ -96,11 +99,13 @@ def forward(model: LM, batch, cfg: ModelConfig, return_hidden: bool = False):
 
 
 def loss_fn(model: LM, batch, cfg: ModelConfig, aux_weight: float = 0.01,
-            z_weight: float = 1e-4):
+            z_weight: float = 1e-4, remat: bool = False,
+            gather_params: bool = False):
     """Next-token cross-entropy (+ MoE aux + z-loss); positions with a
     label < 0 are masked.  The gold logit is a one-hot contraction, as in
     the reference."""
-    logits, aux = forward(model, batch, cfg)
+    logits, aux = forward(model, batch, cfg, remat=remat,
+                          gather_params=gather_params)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = torch.clamp_min(labels, 0)

@@ -1635,3 +1635,106 @@ def test_lm_smoke_on_the_card(dev, no_tf32, arch):
                 model, {k: v[:, t:t + 1] for k, v in batch.items()}, caches,
                 cfg)
             torch.testing.assert_close(lg, full[:, t], **bar)
+
+
+# The train step's FGW term solves in f32 and its implicit gradient's
+# Neumann series amplifies rounding: two f32 evaluations of the step's
+# gradient sit up to 1.4e-3 of a parameter's largest gradient from the f64
+# one (tests/train_spreads.py), so the card and the CPU are held to 3e-3,
+# the CPU tests' bar against the reference (tests/_torch_train.py).
+_TRAIN_GW_F32 = 3e-3
+
+
+def _train_smoke(dev_, gw_weight, backend="auto"):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.losses import AlignConfig
+    from repro_torch.train import loop, optimizer
+    cfg = dataclasses.replace(configs.get_smoke("smollm-360m"),
+                              dtype="float32")
+    tcfg = loop.TrainConfig(
+        microbatches=2, remat=True, gw_align_weight=gw_weight,
+        gw_align=AlignConfig(theta=0.5, outer_iters=2, sinkhorn_iters=20,
+                             sinkhorn_backend=backend),
+        optimizer=optimizer.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10))
+    state = loop.init_state(cfg, tcfg, torch.Generator().manual_seed(5),
+                            "cpu")
+    if dev_.type == "cuda":
+        state.model.to(dev_)
+        state.opt = optimizer.init(state.params(), tcfg.optimizer)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (4, 24))
+    batch = {"tokens": toks, "labels": toks,
+             "teacher_h": rng.normal(size=(4, 24, cfg.d_model)).astype(
+                 np.float32)}
+    return cfg, tcfg, state, batch
+
+
+def test_train_step_on_the_card_with_the_fgw_kernels(dev, no_tf32):
+    """A smoke train step with the FGW distillation term (2 microbatches,
+    remat) on the card against the same step on the CPU: the scalars and
+    the moments within the FGW bar, B1/B2 launched once an inner update
+    of each microbatch's batched solve (2 × 2 outer × 20 updates), and
+    against the same step on the plain route."""
+    from repro_torch.train import loop
+    out = {}
+    for where, backend in (("cpu", "auto"), ("card", "auto"),
+                           ("card plain", "torch")):
+        d = torch.device("cpu") if where == "cpu" else dev
+        cfg, tcfg, state, batch = _train_smoke(d, 0.5, backend)
+        ops.reset_launch_counts()
+        metrics = loop.train_step(state, batch, cfg, tcfg)
+        torch.cuda.synchronize()
+        out[where] = (metrics, state, dict(ops.LAUNCHES))
+    n = 2 * 2 * 20
+    assert out["card"][2] == dict(ops.LAUNCHES, sinkhorn_row_update=n,
+                                  sinkhorn_col_update=n, fgc_apply_dtilde=0,
+                                  fgc_apply_l=0, lr_dykstra_half=0,
+                                  lr_gram_chain=0, lr_grad_combine=0)
+    assert sum(out["card plain"][2].values()) == 0
+    want_m, want_s, _ = out["cpu"]
+    for key in ("card", "card plain"):
+        m, s, _ = out[key]
+        assert m.keys() == want_m.keys() and "gw_align" in m
+        for k in m:
+            torch.testing.assert_close(m[k].cpu(), want_m[k],
+                                       rtol=_TRAIN_GW_F32, atol=0)
+        for k, v in want_s.opt.m.items():
+            got = s.opt.m[k].cpu()
+            assert float((got - v).abs().max()) <= \
+                _TRAIN_GW_F32 * float(v.abs().max()), (key, k)
+        assert s.step == 1 and s.opt.step == 1
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(dev, tmp_path):
+    """A train state saved from the card (and a bf16 leaf) restores on the
+    CPU and back on the card with the same bits."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train import loop
+    cfg, tcfg, state, batch = _train_smoke(dev, 0.0)
+    loop.train_step(state, batch, cfg, tcfg)
+    tree = loop.state_tree(state)
+    tree["bf16"] = torch.randn(7, device=dev).bfloat16()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, tree)
+    mgr.wait()
+    like = {"params": {k: torch.empty_like(v, device="meta")
+                       for k, v in tree["params"].items()},
+            "opt": {"m": {k: torch.zeros_like(v, device="cpu")
+                          for k, v in state.opt.m.items()},
+                    "v": {k: torch.zeros_like(v, device="cpu")
+                          for k, v in state.opt.v.items()}, "step": 0},
+            "step": 0, "bf16": torch.zeros(7, dtype=torch.bfloat16)}
+    on_cpu = mgr.restore(like, device="cpu")
+    back = mgr.restore(like, device=dev)
+    for k, p in tree["params"].items():
+        assert on_cpu["params"][k].device.type == "cpu"
+        assert torch.equal(on_cpu["params"][k], p.detach().cpu())
+        assert back["params"][k].device == p.device
+        assert torch.equal(back["params"][k], p.detach())
+    for k, v in state.opt.m.items():
+        assert torch.equal(on_cpu["opt"]["m"][k], v.cpu())
+    assert on_cpu["bf16"].dtype == torch.bfloat16
+    assert torch.equal(on_cpu["bf16"], tree["bf16"].cpu())
+    assert on_cpu["step"] == on_cpu["opt"]["step"] == 1

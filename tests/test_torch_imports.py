@@ -1,6 +1,7 @@
-"""Import boundary: the port (its serving and launch packages included),
-its chip smoke script and its timing tools import neither JAX nor
-anything of the reference package ``repro``."""
+"""Import boundary: the port (its serving, training, data, checkpoint,
+distributed and launch packages included), its chip smoke script and its
+timing tools import neither JAX nor anything of the reference package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -34,4 +35,8 @@ def test_scan_covers_the_port():
             "barycenter.py", "sliced.py", "engine.py", "cache.py",
             "calibration.py", "serve.py", "attention.py", "mlp.py",
             "ssm.py", "blocks.py", "lm.py", "common.py", "shapes.py",
-            "smollm_360m.py", "zamba2_7b.py"} <= names
+            "smollm_360m.py", "zamba2_7b.py", "pipeline.py", "optimizer.py",
+            "loop.py", "manager.py", "fault_tolerance.py", "sharding.py",
+            "train.py", "flops.py"} <= names
+    for sub in ("data", "train", "checkpoint", "distributed"):
+        assert ROOT / "src" / "repro_torch" / sub / "__init__.py" in FILES

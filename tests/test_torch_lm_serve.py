@@ -272,8 +272,11 @@ def test_launch_serve_lm_on_the_cpu(arch, capsys):
     assert out[-1].startswith("8 tokens in ") and out[-1].endswith("tok/s)")
 
 
-def test_launch_serve_ckpt_dir_names_the_trainer():
+def test_launch_serve_ckpt_dir_names_the_trainer(tmp_path):
+    """--ckpt-dir restores a checkpoint of the trainer
+    (tests/test_torch_train_launch.py serves one); a directory without one
+    exits naming the trainer that writes them."""
     with pytest.raises(SystemExit) as exc:
         launch_serve.main(["--smoke", "--device", "cpu", "--ckpt-dir",
-                           "/nonexistent"])
-    assert "A14" in str(exc.value.code)
+                           str(tmp_path / "empty")])
+    assert "repro_torch.launch.train" in str(exc.value.code)
