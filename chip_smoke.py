@@ -135,7 +135,16 @@ result line:
    --deterministic`` as subprocesses: SIGTERM after step 5 lands a
    checkpoint, the same command resumes from it, and the final state
    equals an uninterrupted run's bits; ``launch.serve --ckpt-dir``
-   serves it.
+   serves it.  Then the sharded path (Run R; one NCCL rank a card, at
+   most 4, started by ``torch.distributed.run`` as ``chip_smoke.py
+   --run-r-rank``): smollm-360m at its published widths cut to 8 layers,
+   Run Q(a)'s batch with the FGW term, 3 steps on (2, 2) "2d" and (4, 1)
+   "dp" (one card: a (1, 1) mesh) against one card's steps and its
+   one-ulp envelope, a plain f32 step, the bf16 in-loop gather's
+   all-gathers, ZeRO-1's moment bytes and peaks a rank, a checkpoint
+   saved on one mesh restored on another and on one card (equal bits),
+   the sharded decode against one card's ``Engine``, and each profiled
+   step's collectives (``launch/collectives.py``) and NCCL share.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -3297,8 +3306,10 @@ def phase_lm_path(torch, np, ops, core):
 # ---------------------------------------------------------------------------
 
 # bf16 against f32 is compared on the batch's first row and first
-# ``bf16_seq`` tokens, on the card and on the CPU (whose bf16 step is slow)
-Q_A = dict(arch="smollm-360m", batch=8, seq=256, overfit=10, bf16_seq=64)
+# ``bf16_seq`` tokens, on the card and on the CPU (whose bf16 step is slow:
+# 4.8 s for 64 tokens on one host, 52.5 s on another; 32 since Run R joined
+# the script, which took 1180 s of its 1200 s limit on the slower host)
+Q_A = dict(arch="smollm-360m", batch=8, seq=256, overfit=10, bf16_seq=32)
 Q_B = dict(batch=2, seq=32)
 Q_LR = 1e-3
 # f32 train step, card against CPU: the scalars (loss, ce, grad_norm, lr)
@@ -3871,6 +3882,619 @@ def phase_train_path(torch, np, ops, core):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the sharded path: Run R
+# ---------------------------------------------------------------------------
+
+# smollm-360m at its published widths, depth cut to 8 of its 32 layers:
+# with all 32, Run R took ~150 s on one card (228 s on four), and the whole
+# script would pass ~1100 s of its 1200 s limit; Run Q(a)'s batch
+R_LAYERS = 8
+R_STEPS = 3
+R_DECODE = dict(batch=4, prompt=64, new=16)
+R_MAX_WORLD = 4
+R_TIMEOUT = 900
+# the gathered step's gradients are bf16 values, and a data-sharded batch
+# rounds each shard's partial gradient to bf16 before the sum: two bf16
+# roundings (tests/test_torch_sharded.py's GATHER_BF16)
+R_GATHER_BAR = 2 * 2.0 ** -8
+R_SCALARS = ("loss", "ce", "grad_norm", "gw_align")
+
+
+def r_meshes(world):
+    """(mesh shape, strategy) of each sharded run on ``world`` cards."""
+    if world >= 4:
+        return [((2, 2), "2d"), ((4, 1), "dp")]
+    if world > 1:
+        return [((1, world), "2d"), ((world, 1), "dp")]
+    return [((1, 1), "2d")]
+
+
+def r_full(torch, t):
+    """A tensor whole: a DTensor's full_tensor() (every rank must call)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def r_state_fulls(torch, st):
+    """(params, m, v) of a state as whole tensors on this rank's card."""
+    return ({k: r_full(torch, p).detach() for k, p in st.params().items()},
+            {k: r_full(torch, v) for k, v in st.opt.m.items()},
+            {k: r_full(torch, v) for k, v in st.opt.v.items()})
+
+
+def r_holder(fulls):
+    """Whole tensors (params, m, v) in the shape of a train state."""
+    params, m, v = fulls
+    return types.SimpleNamespace(params=lambda: params,
+                                 opt=types.SimpleNamespace(m=m, v=v))
+
+
+def r_distance(torch, got, want_st, bar):
+    """(m's largest per-tensor distance, v's, the parameters' ratio to
+    bar·(lr + |p|) where the gradient is away from zero) of whole tensors
+    ``got`` against a one-card state."""
+    _, m, v = got
+    dm = max(q_rel(torch, m[k], w) for k, w in want_st.opt.m.items())
+    dv = max(q_rel(torch, v[k], w) for k, w in want_st.opt.v.items())
+    return dm, dv, q_params(torch, r_holder(got), want_st, bar)
+
+
+def r_collectives(torch, prof, collectives):
+    """The profiled step's collectives by kind (count, payload and wire
+    bytes) and the NCCL kernels' share of its device kernel time."""
+    by = {}
+    trace = collectives.chrome_trace(prof)
+    done = collectives.ops(trace)
+    for o in done:
+        c = by.setdefault(o["kind"], [0, 0.0, 0.0])
+        c[0] += 1
+        c[1] += o["payload_bytes"]
+        c[2] += o["wire_bytes"]
+    dev = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    total = sum(e.get("dur", 0) for e in dev)
+    nccl = sum(e.get("dur", 0) for e in dev if "nccl" in e["name"].lower())
+    bf16 = sum(o["kind"] == "all-gather" and o["dtype"] == "c10::BFloat16"
+               for o in done)
+    top = sorted(done, key=lambda o: -o["payload_bytes"])[:4]
+    by["largest"] = [f"{o['kind']} {o['dtype']} "
+                     f"{o['payload_bytes'] / 2**20:.1f} MiB" for o in top]
+    return by, (nccl / total if total else math.nan), total / 1e3, bf16
+
+
+def r_rank(out_dir):
+    """One rank of Run R (``torch.distributed.run`` starts one a card):
+    the sharded steps, the gather, the moments' bytes, the elastic
+    restore and the sharded decode; rank 0 also runs the one-card
+    references and holds every comparison.  Writes rank<r>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as optim
+
+    rank = mesh_mod.init_distributed("cuda")
+    world = dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"bars": [], "facts": [], "launches": {k: 0 for k in ops.LAUNCHES},
+           "walls": {}}
+    lead = rank == 0
+
+    def note(text):
+        if lead:
+            print(text, flush=True)
+
+    def bar(label, value, limit, why):
+        if lead:
+            out["bars"].append([label, float(value), float(limit), why])
+
+    def fact(ok, text):
+        if lead:
+            out["facts"].append([bool(ok), text])
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    cfg = dataclasses.replace(configs.get("smollm-360m"), dtype="float32",
+                              num_layers=R_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    init = {k: v.detach() for k, v in
+            lm.init_params(cfg, gen, dev).state_dict().items()}
+    batch = q_batch(np, pipeline, cfg, Q_A["batch"], Q_A["seq"])
+    gen.manual_seed(SEED + 1)
+    teacher = lm.init_params(cfg, gen, dev)
+    with torch.inference_mode():
+        _, _, hid = lm.forward(teacher, loop.to_device(batch, dev), cfg,
+                               return_hidden=True)
+    gw_batch = dict(batch, teacher_h=hid.float().cpu().clone())
+    del teacher, hid
+    tcfg = q_tcfg(loop, optim, gw_align_weight=0.5)
+    g = tcfg.gw_align
+    per_step = g.outer_iters * g.sinkhorn_iters
+    meshes = r_meshes(world)
+    note(f"  Run R {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+         f"{cfg.vocab_size}, f32; {world} NCCL rank(s), one a card; Run "
+         f"Q(a)'s batch ({Q_A['batch']} × {Q_A['seq']}) with the FGW term "
+         f"(weight 0.5, teacher states of a second seeded model), "
+         f"{R_STEPS} steps on " + ", ".join(
+             f"({a}, {b}) \"{s}\"" for (a, b), s in meshes)
+         + " against the same steps on one card unsharded")
+
+    # one-card references (rank 0)
+    ref, ref1, ref_metrics = None, None, []
+    if lead:
+        ref = q_state(torch, lm, loop, optim, cfg, init, dev, tcfg)
+        for i in range(R_STEPS):
+            m_, wall, peak, _ = q_step(torch, loop, ref, gw_batch, cfg, tcfg)
+            ref_metrics.append({k: float(v) for k, v in m_.items()})
+            out["walls"][f"R one card step {i + 1}"] = wall
+            if i == 0:      # the one-step parameter rule holds here only
+                ref1 = r_holder(tuple({k: t.detach().clone() for k, t in
+                                       d.items()} for d in (
+                    ref.params(), ref.opt.m, ref.opt.v)))
+        # the envelope: the same steps from the weights moved one ulp.  The
+        # FGW term's f32 implicit gradient amplifies a rounding, and after
+        # the first step two states part where AdamW's ±lr moves straddle
+        # zero: the steps are held to P_ENVELOPE × this distance
+        nudged = {k: v.clone() for k, v in init.items()}
+        q_nudge_(torch, nudged, SEED)
+        env = q_state(torch, lm, loop, optim, cfg, nudged, dev, tcfg)
+        del nudged
+        env_s = []
+        for i in range(R_STEPS):
+            m_ = loop.train_step(env, gw_batch, cfg, tcfg)
+            env_s.append(max(abs(float(m_[k]) - ref_metrics[i][k])
+                             / max(abs(ref_metrics[i][k]), 1e-30)
+                             for k in R_SCALARS))
+            if i == 0:
+                env_m1, env_v1, _ = r_distance(
+                    torch, r_state_fulls(torch, env), ref1, Q_GW_BAR)
+        env_m, env_v, _ = r_distance(torch, r_state_fulls(torch, env), ref,
+                                     Q_GW_BAR)
+        del env
+        gc.collect()
+        torch.cuda.empty_cache()
+        note("  Run R one card from the weights moved one ulp (the "
+             "envelope): scalars " + " ".join(f"{e:.3e}" for e in env_s)
+             + f" at steps 1–{R_STEPS}; after step 1: m {env_m1:.3e}, v "
+             f"{env_v1:.3e}; after step {R_STEPS}: m {env_m:.3e}, v "
+             f"{env_v:.3e}")
+        # the bars of one step from one state (R(a)'s first, R(d)'s next)
+        one_step = dict(
+            s=(max(Q_F32_BAR, P_ENVELOPE * env_s[0]),
+               f"max(1e-4, {P_ENVELOPE:g}× the one-ulp envelope "
+               f"{env_s[0]:.1e})"),
+            m=(max(Q_GW_BAR, P_ENVELOPE * env_m1),
+               f"max(3e-3, {P_ENVELOPE:g}× the envelope {env_m1:.1e})"),
+            v=(max(2 * Q_GW_BAR, P_ENVELOPE * env_v1),
+               f"max(6e-3, {P_ENVELOPE:g}× the envelope {env_v1:.1e})"))
+        out["ref_peak_gib"] = peak
+        note(f"  Run R one card, unsharded: step walls " + " ".join(
+            f"{out['walls'][f'R one card step {i + 1}']:.3f}"
+            for i in range(R_STEPS)) + f" s, peak {peak:.3f} GiB")
+    sync()
+
+    # lanes each rank solves in the FGW term
+    lanes = []
+    real = loop.gw_losses.fgw_alignment_loss_batch
+
+    def counted(h, *a, **kw):
+        lanes.append(int(h.shape[0]))
+        return real(h, *a, **kw)
+    loop.gw_losses.fgw_alignment_loss_batch = counted
+
+    saved = None
+    first = None
+    for (nd, nm), strat in meshes:
+        mesh = mesh_mod.local_mesh(nd, nm)
+        tag = f"({nd}, {nm}) \"{strat}\""
+        st = q_state(torch, lm, loop, optim, cfg, init, dev, tcfg)
+        loop.shard_state(st, mesh, strat)
+        # R(c): the moments' bytes on this rank and the ZeRO-1 shards
+        shape = sharding.mesh_shape(mesh)
+        shapes = {k: tuple(p.shape) for k, p in st.params().items()}
+        ps = sharding.param_specs(shapes, shape, strat)
+        zs = sharding.zero_specs(shapes, ps, shape)
+        mom = sum(st.opt.m[k].to_local().numel() + st.opt.v[k].to_local()
+                  .numel() for k in shapes) * 4
+        par = sum(p.to_local().numel() for p in st.params().values()) * 4
+        zero_bad = [k for k in shapes if "data" in sharding._used(zs[k])
+                    and "data" not in sharding._used(ps[k])
+                    and st.opt.m[k].to_local().numel() * shape["data"]
+                    != st.params()[k].to_local().numel()]
+        moments = [None] * world
+        dist.all_gather_object(moments, (mom, par, zero_bad))
+        torch.cuda.reset_peak_memory_stats()
+        lanes.clear()
+        walls, profiled = [], None
+        counts = {k: 0 for k in ops.LAUNCHES}
+        for i in range(R_STEPS):
+            ops.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            if i == R_STEPS - 1 and world > 1:    # (1, 1) moves nothing
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    m_ = loop.train_step(st, gw_batch, cfg, tcfg)
+                    torch.cuda.synchronize()
+                profiled = r_collectives(torch, prof, collectives)
+            else:
+                m_ = loop.train_step(st, gw_batch, cfg, tcfg)
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for k, v in ops.LAUNCHES.items():
+                counts[k] += v
+            if lead:
+                d = max(abs(float(m_[k]) - ref_metrics[i][k])
+                        / max(abs(ref_metrics[i][k]), 1e-30)
+                        for k in R_SCALARS)
+                if i == 0:
+                    bar(f"Run R(a) {tag} step 1 scalars ({', '.join(R_SCALARS)}"
+                        ") against one card", d, *one_step["s"])
+                else:
+                    bar(f"Run R(a) {tag} step {i + 1} scalars against one "
+                        "card", d, max(Q_F32_BAR, P_ENVELOPE * env_s[i]),
+                        f"max(1e-4, {P_ENVELOPE:g}× the one-ulp envelope "
+                        f"{env_s[i]:.1e})")
+            if i == 0:
+                f1 = r_state_fulls(torch, st)
+                if lead:
+                    dm1, dv1, rp1 = r_distance(torch, f1, ref1, Q_GW_BAR)
+                    bar(f"Run R(a) {tag} step 1 m against one card", dm1,
+                        *one_step["m"])
+                    bar(f"Run R(a) {tag} step 1 v", dv1, *one_step["v"])
+                    bar(f"Run R(a) {tag} step 1 parameters (ratio to the "
+                        "bar)", rp1, 1.0, "bar·(lr + |p|) away from g = 0")
+                del f1
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in counts.items():
+            out["launches"][k] += v
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, (counts, list(lanes), walls, peak,
+                                          profiled))
+        fulls = r_state_fulls(torch, st)
+        if lead:
+            # after several steps the parameters are not held: where two
+            # gradients a rounding apart straddle zero, AdamW moves them
+            # ±lr apart, and that persists (the one-step rule above)
+            dm, dv, _ = r_distance(torch, fulls, ref, Q_GW_BAR)
+            bar(f"Run R(a) {tag} m after {R_STEPS} steps against one card",
+                dm, max(Q_GW_BAR, P_ENVELOPE * env_m),
+                f"max(3e-3, {P_ENVELOPE:g}× the envelope {env_m:.1e})")
+            bar(f"Run R(a) {tag} v after {R_STEPS} steps", dv,
+                max(2 * Q_GW_BAR, P_ENVELOPE * env_v),
+                f"max(6e-3, {P_ENVELOPE:g}× the envelope {env_v:.1e})")
+            n_data = nd
+            for r, (c, ln, w, pk, prof_r) in enumerate(per_rank):
+                fact(c["sinkhorn_row_update"] == R_STEPS * per_step
+                     and c["sinkhorn_col_update"] == R_STEPS * per_step
+                     and sum(c.values()) == 2 * R_STEPS * per_step,
+                     f"Run R(a) {tag} rank {r}: B1/B2 launches {c}, "
+                     f"expected {R_STEPS * per_step} each")
+                fact(ln == [Q_A["batch"] // n_data] * R_STEPS,
+                     f"Run R(a) {tag} rank {r}: FGW lanes {ln}, expected "
+                     f"{Q_A['batch'] // n_data} a step")
+            by, share, dev_ms, _ = per_rank[0][4] or ({"largest": []},
+                                                       math.nan, 0.0, 0)
+            note(f"  Run R(a) {tag}: step walls " + " ".join(
+                f"{w:.3f}" for w in walls) + " s (the last under the "
+                f"profiler on a mesh of several cards); rank peaks " + " ".join(
+                f"{x[3]:.3f}" for x in per_rank) + " GiB (one card "
+                f"{out['ref_peak_gib']:.3f}); B1/B2 "
+                f"{per_rank[0][0]['sinkhorn_row_update']}/"
+                f"{per_rank[0][0]['sinkhorn_col_update']} launches a rank "
+                f"for {per_rank[0][1]} lanes a step; after step 1: m "
+                f"{dm1:.3e}, v {dv1:.3e}, parameters {rp1:.3f} of their bar;"
+                f" after step {R_STEPS}: m {dm:.3e}, v {dv:.3e}")
+            note(f"  Run R(a) {tag} profiled step, rank 0: "
+                 + ", ".join(f"{k} {v[0]}× {v[1] / 2**20:.3f} MiB payload "
+                             f"{v[2] / 2**20:.3f} MiB wire"
+                             for k, v in sorted(by.items())
+                             if k != "largest")
+                 + f"; the largest: {', '.join(by['largest'])}; NCCL "
+                 f"kernels {share:.1%} of {dev_ms:.3f} ms of device kernel "
+                 "time" if world > 1 else f"  Run R(a) {tag}: not profiled "
+                 "(a (1, 1) mesh makes no collective)")
+            out["walls"][f"R {tag} steps"] = sum(walls)
+            mom_bytes = [x[0] for x in moments]
+            one = sum(v.numel() for v in init.values()) * 8
+            note(f"  Run R(c) {tag}: moments (m and v) a rank " + " ".join(
+                f"{b / 2**20:.1f}" for b in mom_bytes) + f" MiB against "
+                f"{one / 2**20:.1f} MiB on one card; parameters a rank "
+                + " ".join(f"{x[1] / 2**20:.1f}" for x in moments)
+                + " MiB")
+            fact(all(not x[2] for x in moments),
+                 f"Run R(c) {tag}: a moment sharded over data does not "
+                 "hold 1/|data| of its parameter's local elements")
+            fact(all(b < one for b in mom_bytes) or nd * nm == 1,
+                 f"Run R(c) {tag}: a rank holds all the moments")
+        if first is None:
+            first = (mesh, tag)
+            # R(d): save this state (its whole tensors stay, to compare),
+            # then its uninterrupted next step
+            ckpt = Path(out_dir) / "ckpt"
+            t0 = time.perf_counter()
+            CheckpointManager(str(ckpt)).save(R_STEPS, loop.state_tree(st))
+            out["walls"]["R(d) save"] = time.perf_counter() - t0
+            # copies: a replicated leaf's whole tensor is the state's own
+            saved = tuple({k: t.clone() for k, t in d.items()}
+                          for d in fulls) if lead else None
+            m_ = loop.train_step(st, gw_batch, cfg, tcfg)
+            cont = r_holder(r_state_fulls(torch, st))
+            cont_metrics = {k: float(v) for k, v in m_.items()}
+        del st, fulls
+        gc.collect()
+        torch.cuda.empty_cache()
+    loop.gw_losses.fgw_alignment_loss_batch = real
+
+    # R(a′): one plain f32 step (no FGW term) on the first mesh against
+    # one card's: the sharded forward and backward at Run Q(a)'s f32 bars
+    mesh, tag = first
+    tp = q_tcfg(loop, optim)
+    st = q_state(torch, lm, loop, optim, cfg, init, dev, tp)
+    loop.shard_state(st, mesh, meshes[0][1])
+    m_ = loop.train_step(st, batch, cfg, tp)
+    fulls = r_state_fulls(torch, st)
+    if lead:
+        one = q_state(torch, lm, loop, optim, cfg, init, dev, tp)
+        mo = loop.train_step(one, batch, cfg, tp)
+        d = max(q_rel(torch, m_[k], mo[k]) for k in ("loss", "ce",
+                                                      "grad_norm"))
+        dm, dv, rp = r_distance(torch, fulls, one, Q_F32_BAR)
+        note(f"  Run R(a′) {tag} one f32 step without the FGW term against "
+             f"one card's: scalars {d:.3e}, m {dm:.3e}, v {dv:.3e}, "
+             f"parameters {rp:.3f} of their bar")
+        bar("Run R(a′) plain step scalars against one card's", d, Q_F32_BAR,
+            "f32 sums in other orders")
+        bar("Run R(a′) plain step m", dm, Q_F32_BAR, "f32 sums in other "
+            "orders")
+        bar("Run R(a′) plain step v", dv, 2 * Q_F32_BAR, "a square of the "
+            "gradient")
+        bar("Run R(a′) plain step parameters (ratio to the bar)", rp, 1.0,
+            "bar·(lr + |p|) away from g = 0")
+        del one
+    del st, fulls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # R(b): one step with the in-loop gather on the first mesh
+    tg = q_tcfg(loop, optim, gather_params=True)
+    st = q_state(torch, lm, loop, optim, cfg, init, dev, tg)
+    loop.shard_state(st, mesh, meshes[0][1])
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        m_ = loop.train_step(st, batch, cfg, tg)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by, share, dev_ms, gathers = r_collectives(torch, prof, collectives)
+    shapes = {k: tuple(p.shape) for k, p in st.params().items()}
+    ms = sharding.mesh_shape(mesh)
+    specs = sharding.param_specs(shapes, ms)
+    # a size-1 mesh dim moves nothing
+    want = sum(sum(ms[a] > 1 for a in sharding._used(s))
+               for k, s in specs.items() if k.startswith("stack.scanned."))
+    fulls = r_state_fulls(torch, st)
+    if lead:
+        one = q_state(torch, lm, loop, optim, cfg, init, dev, tg)
+        mo = loop.train_step(one, batch, cfg, tg)
+        d = max(q_rel(torch, m_[k], mo[k]) for k in ("loss", "grad_norm"))
+        dm, dv, rp = r_distance(torch, fulls, one, R_GATHER_BAR)
+        note(f"  Run R(b) {tag} gather_params step: {wall:.3f} s (profiled)"
+             f", {gathers} bf16 all-gathers (expected {want}: one a sharded "
+             f"slot parameter and period, a mesh dim of size > 1 it is "
+             f"sharded on); "
+             + ", ".join(f"{k} {v[0]}×" for k, v in sorted(by.items())
+                         if k != "largest")
+             + f"; NCCL {share:.1%} of {dev_ms:.3f} ms; against one card's "
+             f"gather step: loss and grad_norm {d:.3e}, m {dm:.3e}, v "
+             f"{dv:.3e}, parameters {rp:.3f} of their bar")
+        fact(gathers == want, f"Run R(b): {gathers} bf16 all-gathers, "
+             f"expected {want}")
+        bar("Run R(b) gather step scalars against one card's", d,
+            R_GATHER_BAR, "two bf16 roundings of a gradient")
+        bar("Run R(b) gather step m against one card's", dm, R_GATHER_BAR,
+            "two bf16 roundings of a gradient")
+        bar("Run R(b) gather step parameters (ratio to the bar)", rp, 1.0,
+            "bar·(lr + |p|) away from g = 0")
+        del one
+    del st, fulls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # R(d): restore onto the other mesh and onto one card, then a step
+    ref = ref1 = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mgr = CheckpointManager(str(Path(out_dir) / "ckpt"))
+    targets = [(mesh_mod.local_mesh(*m), m, s) for m, s in meshes[1:]]
+    for mesh, m, s in targets + [(None, None, None)]:
+        if mesh is None and not lead:
+            continue
+        like = q_state(torch, lm, loop, optim, cfg, init, dev, tcfg)
+        if mesh is not None:
+            loop.shard_state(like, mesh, s)
+        t0 = time.perf_counter()
+        tree = mgr.restore(loop.state_tree(like))
+        loop.load_state_tree(like, tree)
+        where = f"({m[0]}, {m[1]}) \"{s}\"" if mesh else "one card, no mesh"
+        out["walls"][f"R(d) restore {where}"] = time.perf_counter() - t0
+        # compared before the step: a replicated leaf's whole tensor is
+        # the state's own storage, which the step updates in place
+        got = r_state_fulls(torch, like)
+        same = lead and all(torch.equal(got[i][k], saved[i][k])
+                            for i in range(3) for k in saved[i])
+        del got
+        m_ = loop.train_step(like, gw_batch, cfg, tcfg)
+        after = r_state_fulls(torch, like)
+        if lead:
+            d = max(abs(float(m_[k]) - cont_metrics[k])
+                    / max(abs(cont_metrics[k]), 1e-30) for k in R_SCALARS)
+            dm, dv, rp = r_distance(torch, after, cont, Q_GW_BAR)
+            dp = max(float((after[0][k] - p).abs().max())
+                     for k, p in cont.params().items()) / (2 * Q_LR)
+            note(f"  Run R(d) saved on {tag}, restored on {where}: every "
+                 f"leaf the saved bits: {same}; the next step against the "
+                 f"uninterrupted run's on {tag}: scalars {d:.3e}, m {dm:.3e},"
+                 f" v {dv:.3e}, parameters {rp:.3f} of the one-step rule's "
+                 f"bar, the largest move {dp:.3f} of 2·lr")
+            fact(same, f"Run R(d) restored on {where}: a leaf differs from "
+                 "the saved state's")
+            # from one state, AdamW's update lr·m̂/(√v̂ + eps) is at most
+            # lr at step 4 (b1 0.9, b2 0.95): two next steps part by ≤ 2·lr
+            bar(f"Run R(d) {where} next step scalars", d, *one_step["s"])
+            bar(f"Run R(d) {where} next step m", dm, *one_step["m"])
+            bar(f"Run R(d) {where} next step v", dv, *one_step["v"])
+            bar(f"Run R(d) {where} next step parameters (largest move over "
+                "2·lr)", dp, 1.0 + 1e-3, "two AdamW moves of at most lr")
+        del like, tree, after
+        gc.collect()
+        torch.cuda.empty_cache()
+    sync()
+    saved = cont = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # R(e): the sharded decode on the first mesh against one card's engine
+    mesh, tag = first
+    a = R_DECODE
+    max_len = a["prompt"] + a["new"]
+    model = lm.LM(cfg, None, device="meta")
+    model.load_state_dict({k: v.clone() for k, v in init.items()},
+                          strict=True, assign=True)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    sharding.distribute_module(model, mesh, sharding.param_specs(
+        shapes, sharding.mesh_shape(mesh)))
+    prompts = torch.as_tensor(batch["tokens"][:a["batch"], :a["prompt"]],
+                              dtype=torch.long, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        caches = lm.cache_init(cfg, a["batch"], max_len, "float32", dev,
+                               mesh=mesh)
+        logits, caches = lm.prefill(
+            model, sharding.distribute_batch({"tokens": prompts}, mesh),
+            cfg, caches)
+        seen, toks = [r_full(torch, logits)], []
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        for _ in range(a["new"]):
+            tok = torch.argmax(seen[-1], dim=-1)
+            toks.append(tok)
+            logits, caches = lm.decode_step(
+                model, sharding.distribute_batch({"tokens": tok[:, None]},
+                                                 mesh), caches, cfg)
+            seen.append(r_full(torch, logits))
+        torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    out["walls"]["R(e) decode"] = t_all
+    if lead:
+        plain = lm.LM(cfg, None, device="meta")
+        plain.load_state_dict({k: v.clone() for k, v in init.items()},
+                              strict=True, assign=True)
+        want_t, want_l = Engine(plain, cfg, ServeConfig(
+            max_len=max_len, batch_size=a["batch"])).generate(
+            prompts.cpu().numpy(), a["new"], return_logits=True)
+        got_t = torch.stack(toks, 1).cpu().numpy()
+        got_l = torch.stack(seen, 1)
+        d = p_rel(torch, got_l, want_l)
+        note(f"  Run R(e) {tag} decode, batch {a['batch']}, {a['prompt']}-"
+             f"token prompts, {a['new']} greedy steps: prefill {t_pre:.3f} "
+             f"s, {(t_all - t_pre) / a['new'] * 1e3:.1f} ms a step; tokens "
+             f"{'equal' if (got_t == want_t).all() else 'DIFFER'} to one "
+             f"card's engine; logits {d:.3e} from its")
+        fact((got_t == want_t).all(), "Run R(e): the sharded decode's "
+             "greedy tokens differ from one card's engine")
+        bar("Run R(e) sharded decode logits against one card's engine", d,
+            P_F32_BAR, "Run P(a)'s f32 bar")
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    sync()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded_path(torch, np, ops, core):
+    """Run R: the sharded path, one NCCL rank a card (at most 4), started
+    by torch.distributed.run; the ranks' checks are held here."""
+    import shutil
+    import signal
+    import socket
+    world = min(torch.cuda.device_count(), R_MAX_WORLD)
+    say(f"phase 3, the sharded path: repro_torch.train.loop.shard_state and "
+        f"train_step on a DeviceMesh, the elastic restore and the sharded "
+        f"decode (Run R; {world} card(s), B1/B2 under the FGW term on each "
+        "rank's lanes)")
+    walls = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "run_r"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(world), "--master-addr", "127.0.0.1", "--master-port",
+           str(port), str(ROOT / "chip_smoke.py"), "--run-r-rank", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=R_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    walls["R"] = time.perf_counter() - t0
+    for ln in stdout.splitlines():
+        if ln.startswith("  Run R"):
+            say(ln)
+    (out / "ranks.err").write_text(stderr)
+    first = stderr.find("Traceback")
+    check(proc.returncode == 0, f"Run R: the ranks exited with "
+          f"{proc.returncode}: " + (stderr[first:first + 6000] if first >= 0
+                                    else stderr[-3000:]))
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)]
+    for label, value, limit, why in ranks[0]["bars"]:
+        p_check(label, value, limit, why)
+    for ok, text in ranks[0]["facts"]:
+        check(ok, text)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ops.LAUNCHES}
+    walls.update(ranks[0]["walls"])
+    if world < 4:
+        say(f"  Run R: the 2- and 4-card meshes ((2, 2) \"2d\", (4, 1) "
+            f"\"dp\") did not run for want of cards ({world} here): R(a) "
+            "ran on " + ", ".join(f"({a}, {b}) \"{s}\"" for (a, b), s in
+                                  r_meshes(world))
+            + " and R(d) restored onto one card with no mesh")
+    say(f"  Run R: {walls['R']:.1f} s of wall in all, the ranks' start "
+        "included; B1/B2 launches over the ranks "
+        f"{launches['sinkhorn_row_update']}/{launches['sinkhorn_col_update']}")
+    shutil.rmtree(out / "ckpt", ignore_errors=True)
+    return launches, walls
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -4226,7 +4850,7 @@ def main() -> int:
         for phase in (phase_lowrank_path, phase_batch_path,
                       phase_grad_path, phase_variants_path,
                       phase_serving_path, phase_lm_path,
-                      phase_train_path):
+                      phase_train_path, phase_sharded_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v
@@ -4262,4 +4886,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--run-r-rank"]:
+        sys.exit(r_rank(sys.argv[2]))
     sys.exit(main())

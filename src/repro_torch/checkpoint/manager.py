@@ -16,7 +16,10 @@ bf16 tensor is stored as its uint16 bit pattern with ``"dtype":
 
 Elastic restore: leaves are stored whole, and `CheckpointManager.restore`
 puts each on any device: saved from the card, restored on the CPU, and
-back.
+back; and on any mesh (``shardings``): saved on a (2, 2) mesh, restored on
+(4, 1) or in one process.  A ``DTensor`` leaf is saved whole too: every
+rank takes part in its ``full_tensor()``, rank 0 writes, and every rank
+waits for the write (a barrier in `CheckpointManager.wait`).
 
 Async: `CheckpointManager.save_async` copies the leaves to host memory
 synchronously (a copy, so that an in-place update after it does not reach
@@ -36,8 +39,12 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Placement, distribute_tensor
 
 from repro_torch.core.gw import resolve_device
+from repro_torch.distributed.sharding import placements as spec_placements
 
 
 def _tree_leaves(tree, prefix: str = ""):
@@ -78,26 +85,44 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
+        self._writer = True
 
     # -- write ------------------------------------------------------------
     def save(self, step: int, tree: Any):
         self.wait()
-        self._write(step, self._snapshot(tree))
+        snap = self._snapshot(tree)
+        if self._writer:
+            self._write(step, snap)
+        self.wait()
 
     def save_async(self, step: int, tree: Any):
         self.wait()
         snap = self._snapshot(tree)           # host copy, synchronous
-        self._thread = threading.Thread(
-            target=self._write, args=(step, snap), daemon=True)
-        self._thread.start()
+        if self._writer:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, snap), daemon=True)
+            self._thread.start()
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:       # every rank waits for rank 0's write
+            self._sharded = False
+            dist.barrier()
 
     def _snapshot(self, tree):
-        return [(k,) + _to_numpy(v) for k, v in _tree_leaves(tree)]
+        leaves = list(_tree_leaves(tree))
+        self._sharded = any(isinstance(v, DTensor) for _, v in leaves)
+        self._writer = not self._sharded or dist.get_rank() == 0
+        snap = []
+        for k, v in leaves:
+            if isinstance(v, DTensor):
+                v = v.full_tensor()     # a collective: every rank gathers
+            if self._writer:
+                snap.append((k,) + _to_numpy(v))
+        return snap
 
     def _write(self, step: int, snap):
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -138,11 +163,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None, device=None):
+    def restore(self, like: Any, step: Optional[int] = None, device=None,
+                shardings: Any = None):
         """The checkpoint (by default the latest) in the structure of
         ``like``: each tensor leaf of ``like`` gives its dtype and, unless
         ``device`` is given, its device (a ``meta`` leaf: the CUDA device);
-        a numpy leaf gives its dtype, a Python number its type."""
+        a numpy leaf gives its dtype, a Python number its type.
+
+        ``shardings`` (the elastic re-shard): a tree of the structure of
+        ``like`` whose leaves are None or ``(mesh, spec)``, a spec of
+        `repro_torch.distributed.sharding` or a list of placements; each
+        such leaf is distributed onto its mesh (any mesh: not the one it
+        was saved from), each rank cutting its shard from the whole leaf
+        it read.  Without ``shardings`` a ``DTensor`` leaf of ``like`` is
+        laid out as it is."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -151,6 +185,7 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {e["key"]: e for e in manifest["leaves"]}
+        shard_of = dict(_sharding_leaves(shardings)) if shardings else {}
 
         def load(key, ref):
             e = by_key[key]
@@ -158,6 +193,16 @@ class CheckpointManager:
             if isinstance(ref, torch.Tensor):
                 t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                      if e["dtype"] == "bfloat16" else torch.from_numpy(arr))
+                sh = shard_of.get(key)
+                if sh is None and isinstance(ref, DTensor):
+                    sh = (ref.device_mesh, ref.placements)
+                if sh is not None:
+                    mesh, spec = sh
+                    pl = (list(spec) if spec and all(
+                        isinstance(q, Placement) for q in spec)
+                        else spec_placements(spec, mesh))
+                    t = t.to(device=_mesh_device(mesh), dtype=ref.dtype)
+                    return distribute_tensor(t, mesh, pl, src_data_rank=None)
                 dev = device if device is not None else (
                     ref.device if ref.device.type != "meta" else None)
                 return t.to(device=resolve_device(dev), dtype=ref.dtype)
@@ -165,6 +210,27 @@ class CheckpointManager:
                 return arr.astype(ref.dtype)
             return type(ref)(arr)
         return _tree_map(load, like)
+
+
+def _sharding_leaves(tree, prefix: str = ""):
+    """(dotted key, leaf) of a ``shardings`` tree, whose leaves are None
+    or (mesh, spec or placements) pairs."""
+    if isinstance(tree, tuple) and tree and isinstance(tree[0], DeviceMesh):
+        yield prefix[:-1], tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _sharding_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _sharding_leaves(v, f"{prefix}{i}.")
+    elif tree is not None:
+        raise TypeError(f"a sharding leaf at {prefix[:-1]}: {tree!r}")
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 class Preemption:

@@ -1,4 +1,4 @@
 """Distribution, ported from ``repro.distributed``: the sharding rule
-engine (`repro_torch.distributed.sharding`, specs only: nothing applies
-them yet) and the fault-tolerance primitives
+engine and its application to ``DTensor``s on a ``DeviceMesh``
+(`repro_torch.distributed.sharding`) and the fault-tolerance primitives
 (`repro_torch.distributed.fault_tolerance`)."""

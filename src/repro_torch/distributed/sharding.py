@@ -3,8 +3,10 @@
 Reference: ``repro/distributed/sharding.py``, as plain functions over the
 port's named parameter shapes and a mesh shape (``{"data": 16, "model":
 16}``); a spec is a tuple of axis names (or None, or a tuple of names),
-one entry a dimension.  Nothing applies the specs yet: that needs a
-process group and ``DTensor`` (ROADMAP §A).
+one entry a dimension.  `placements` turns a spec into ``DTensor``
+placements on a ``DeviceMesh`` (the reference's ``named``), and
+`distribute` / `distribute_module` lay a tensor or a module's parameters
+out by such specs (`repro_torch.launch.mesh` builds the meshes).
 
 The rule engine lists candidate dims per parameter name in priority order
 and picks the first one divisible by the mesh axis; anything that fails
@@ -19,7 +21,13 @@ leaves that mesh axis unused.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.train.optimizer import reference_leaf
 
@@ -240,3 +248,143 @@ def batch_specs(batch: dict, mesh: dict, data_axes=("data",)) -> dict:
 
 def data_axes_of(mesh: dict) -> tuple[str, ...]:
     return tuple(a for a in mesh if a in ("pod", "data"))
+
+
+# ---------------------------------------------------------------------------
+# applying the specs: DTensor placements on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> dict:
+    """Axis name → size of a ``DeviceMesh``, the mesh shape the rules
+    read."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def placements(spec: tuple, mesh) -> list:
+    """The ``DTensor`` placements of ``spec`` on ``mesh`` (a
+    ``DeviceMesh``), one per mesh dim: a mesh dim named in entry d gives
+    ``Shard(d)``, each mesh dim of a tuple entry too (its axes must be in
+    mesh order, the major one first, as JAX splits a tuple entry, which is
+    also ``DTensor``'s order), any other mesh dim ``Replicate()``.  A
+    mesh dim of size 1 replicates (a shard of one is the whole tensor,
+    and ``DTensor`` refuses some views of a dim sharded over one rank)."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the order of "
+                             f"the mesh axes {tuple(names)}")
+        for i in idx:
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return out
+
+
+def distribute(x: torch.Tensor, mesh, spec: tuple,
+               src_data_rank=0) -> DTensor:
+    """``x`` laid out by ``spec`` on ``mesh``: with ``src_data_rank=0``
+    every rank's shard comes from rank 0's ``x``; with None each rank cuts
+    its shard from its own ``x`` (the same on every rank) with no
+    communication."""
+    return distribute_tensor(x, mesh, placements(spec, mesh),
+                             src_data_rank=src_data_rank)
+
+
+def distribute_module(module: torch.nn.Module, mesh, specs: dict,
+                      src_data_rank=0) -> torch.nn.Module:
+    """Replace each named parameter of ``module`` (in place) by a
+    parameter holding its ``DTensor`` laid out by ``specs[name]``."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        d = distribute(p.detach(), mesh, specs[name], src_data_rank)
+        sub._parameters[leaf] = torch.nn.Parameter(
+            d, requires_grad=p.requires_grad)
+    return module
+
+
+def mesh_of(module: torch.nn.Module):
+    """The ``DeviceMesh`` of a module whose parameters are ``DTensor``s
+    (`distribute_module`), else None."""
+    p = next(iter(module.parameters()), None)
+    return p.device_mesh if isinstance(p, DTensor) else None
+
+
+_ON_MESH = [0]
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """The context a sharded forward and backward run in: a plain tensor
+    that meets a ``DTensor`` (an ``arange``, a mask, a zero carry: the
+    same on every rank) counts as replicated on ``mesh``
+    (``implicit_replication``, entered once however deep the nesting).
+    A null context without a mesh."""
+    if mesh is None or _ON_MESH[0]:
+        yield
+        return
+    _ON_MESH[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _ON_MESH[0] -= 1
+
+
+def pin(x):
+    """``x`` unchanged; on a ``DTensor``, its gradient is laid out as
+    ``x`` is (a redistribute in the backward pass).  Placed before a view
+    that splits a sharded dim into one that does not divide the mesh axis
+    (3 heads of 16 on a 2-wide ``model`` axis)."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
+def distribute_batch(batch: dict, mesh) -> dict:
+    """A batch's tensors (the same on every rank) as ``DTensor``s split
+    by `batch_specs` over the mesh's data axes; each rank cuts its shard
+    from its own copy, with no communication."""
+    shape = mesh_shape(mesh)
+    specs = batch_specs(batch, shape, data_axes_of(shape))
+    return {k: distribute(v, mesh, specs[k], src_data_rank=None)
+            for k, v in batch.items()}
+
+
+def batch_local(fn, *args, whole=(), **kw):
+    """``fn(*args, *whole, **kw)`` run on each rank's batch shard.  A
+    ``DTensor`` in ``args`` (each batch-leading) is laid out with its
+    dim 0 sharded as the first one's and every other dim whole, and
+    ``fn`` gets its local tensor; a tensor in ``whole`` (a parameter) is
+    gathered whole, its local gradient a ``Partial`` sum over the mesh
+    dims that split the batch.  ``fn``'s tensors come back as
+    ``DTensor``s in the batch layout.  Without a ``DTensor`` it is
+    ``fn`` itself.  For the ops whose layout ``DTensor`` cannot carry
+    through (a flash loop's reshapes, a recurrence over time, a softmax
+    over a sharded sequence): each costs the gathers of its inputs'
+    non-batch shards."""
+    first = next((a for a in args if isinstance(a, DTensor)), None)
+    if first is None:
+        return fn(*args, *whole, **kw)
+    mesh = first.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate()
+          for p in first.placements]
+    grad = [Partial() if p == Shard(0) else Replicate() for p in pl]
+    local = [a.redistribute(mesh, pl).to_local()
+             if isinstance(a, DTensor) else a for a in args]
+    full = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad) if isinstance(w, DTensor) else w
+        for w in whole]
+    out = fn(*local, *full, **kw)
+
+    def wrap(t):
+        if isinstance(t, torch.Tensor):
+            return DTensor.from_local(t, mesh, pl, run_check=False)
+        if isinstance(t, tuple):
+            return tuple(wrap(u) for u in t)
+        return t
+    return wrap(out)

@@ -15,6 +15,11 @@ model's scores are f32 sums of exact bf16 products.
 A layer's cache is a dict of preallocated buffers and a host ``length``:
 decode writes one slot in place (a ring buffer at ``length % cache_len``
 for a window-clamped cache) and returns the dict with ``length + 1``.
+
+On a mesh the attention cores (`chunked_attention`, `decode_attention`,
+MLA decode's latent attention) run on each rank's batch shard
+(`repro_torch.distributed.sharding.batch_local`): their heads, and a
+cache's sequence shards, are gathered first.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.sharding import batch_local, pin
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, apply_m_rope, apply_rope
 
@@ -131,8 +138,36 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
 def write_slot(buf, value, slot: int):
     """Write ``value`` (B,1,…) at ``slot`` of ``buf`` (B,S,…) in place, the
     start clamped to S − 1 as ``lax.dynamic_update_slice`` clamps it."""
-    slot = min(max(slot, 0), buf.shape[1] - 1)
-    buf[:, slot:slot + 1] = value.to(buf.dtype)
+    write_rows(buf, value, min(max(slot, 0), buf.shape[1] - 1))
+
+
+def write_rows(buf, value, start: int):
+    """``buf[:, start:start + n] = value`` (``value`` (B,n,…)) in place.
+    On a ``DTensor`` cache whose dim 1 (the sequence, `cache_specs`'s
+    longest dim) is sharded, a slice of it is not a local view, so each
+    rank writes the rows of the range that it holds into its shard:
+    ``value`` is first laid out as ``buf`` with dim 1 replicated (an
+    all-gather of the new rows where they are sharded otherwise)."""
+    n = value.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, start:start + n] = value.to(buf.dtype)
+        return
+    mesh = buf.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh,
+                                   [Replicate()] * mesh.ndim)
+    seq = [i for i, p in enumerate(buf.placements) if p == Shard(1)]
+    value = value.to(buf.dtype).redistribute(
+        mesh, [Replicate() if i in seq else p
+               for i, p in enumerate(buf.placements)]).to_local()
+    local = buf.to_local()
+    k = 0
+    for i in seq:
+        k = k * mesh.size(i) + mesh.get_local_rank(i)
+    lo = k * local.shape[1]
+    a, b = max(start, lo), min(start + n, lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = value[:, a - start:b - start]
 
 
 class GQA(torch.nn.Module):
@@ -162,34 +197,34 @@ class GQA(torch.nn.Module):
         q, k = _rope_qk(q, k, positions, cfg)
 
         if cache is None:
-            out = chunked_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window,
-                                    q_offset=q_offset)
+            out = batch_local(chunked_attention, q, k, v, causal=True,
+                              window=cfg.sliding_window, q_offset=q_offset)
             new_cache = None
         elif s == 1:  # decode: a ring buffer when the cache is window-clamped
             length = cache["length"]
             cache_len = cache["k"].shape[1]
             write_slot(cache["k"], k, length % cache_len)
             write_slot(cache["v"], v, length % cache_len)
-            out = decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
-                                   min(length + 1, cache_len))
+            out = batch_local(decode_attention, q, cache["k"].to(dt),
+                              cache["v"].to(dt),
+                              n_valid=min(length + 1, cache_len))
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "length": length + 1}
         else:  # prefill: keep the last cache_len positions at their ring
                # slots, so that later decode writes line up
-            out = chunked_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window)
+            out = batch_local(chunked_attention, q, k, v, causal=True,
+                              window=cfg.sliding_window)
             kbuf, vbuf = cache["k"], cache["v"]
             cache_len = kbuf.shape[1]
             if s >= cache_len:
                 shift = s % cache_len   # position p lands at slot p % len
-                kbuf.copy_(torch.roll(k[:, -cache_len:], shift, dims=1))
-                vbuf.copy_(torch.roll(v[:, -cache_len:], shift, dims=1))
+                write_rows(kbuf, torch.roll(k[:, -cache_len:], shift, 1), 0)
+                write_rows(vbuf, torch.roll(v[:, -cache_len:], shift, 1), 0)
             else:
-                kbuf[:, :s] = k.to(kbuf.dtype)
-                vbuf[:, :s] = v.to(vbuf.dtype)
+                write_rows(kbuf, k, 0)
+                write_rows(vbuf, v, 0)
             new_cache = {"k": kbuf, "v": vbuf, "length": s}
-        out = out.reshape(b, s, -1)
+        out = pin(out.reshape(b, s, -1))
         return torch.einsum("bsk,kd->bsd", out, self.wo.to(dt)), new_cache
 
 
@@ -252,16 +287,16 @@ class MLA(torch.nn.Module):
             k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
                 b, s, h, dr)], -1)
             q_full = torch.cat([q_nope, q_rope], -1)
-            out = chunked_attention(q_full, k_full, v, causal=True,
-                                    q_offset=q_offset)
+            out = batch_local(chunked_attention, q_full, k_full, v,
+                              causal=True, q_offset=q_offset)
             new_cache = None
             if cache is not None:  # prefill
                 ck, kr = cache["c_kv"], cache["k_rope"]
                 if s > ck.shape[1]:
                     raise ValueError(f"prefill of {s} tokens into a cache "
                                      f"of {ck.shape[1]}")
-                ck[:, :s] = c_kv.to(ck.dtype)
-                kr[:, :s] = k_rope.to(kr.dtype)
+                write_rows(ck, c_kv, 0)
+                write_rows(kr, k_rope, 0)
                 new_cache = {"c_kv": ck, "k_rope": kr, "length": s}
         else:
             # decode with weight absorption: q_nopeᵀW_uk c + q_rope·k_rope
@@ -270,18 +305,28 @@ class MLA(torch.nn.Module):
             write_slot(ck, c_kv, length)
             write_slot(kr, k_rope, length)
             q_lat = torch.einsum("bshk,rhk->bshr", q_nope, self.w_uk.to(dt))
-            s_lat = torch.einsum("bshr,btr->bhst", q_lat, ck.to(dt))
-            s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr.to(dt))
-            scores = (s_lat + s_rope) * (dn + dr) ** -0.5
-            mask = torch.arange(ck.shape[1], device=x.device) <= length
-            scores = torch.where(mask, scores, NEG_INF)
-            acc_t = torch.promote_types(dt, torch.float32)
-            p = torch.softmax(scores.to(acc_t), -1).to(dt)
-            o_lat = torch.einsum("bhst,btr->bshr", p, ck.to(dt))
+            o_lat = batch_local(_mla_latent_attention, q_lat, q_rope,
+                                ck.to(dt), kr.to(dt), length=length,
+                                scale=(dn + dr) ** -0.5)
             out = torch.einsum("bshr,rhk->bshk", o_lat, self.w_uv.to(dt))
             new_cache = {"c_kv": ck, "k_rope": kr, "length": length + 1}
-        out = out.reshape(b, s, -1)
+        out = pin(out.reshape(b, s, -1))
         return torch.einsum("bsk,kd->bsd", out, self.wo.to(dt)), new_cache
+
+
+def _mla_latent_attention(q_lat, q_rope, ck, kr, *, length: int,
+                          scale: float):
+    """MLA decode's attention over the latent cache ``ck`` and the RoPE
+    keys ``kr`` (positions ≤ ``length``), in the latent space."""
+    dt = q_lat.dtype
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, ck)
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr)
+    scores = (s_lat + s_rope) * scale
+    mask = torch.arange(ck.shape[1], device=ck.device) <= length
+    scores = torch.where(mask, scores, NEG_INF)
+    acc_t = torch.promote_types(dt, torch.float32)
+    p = torch.softmax(scores.to(acc_t), -1).to(dt)
+    return torch.einsum("bhst,btr->bshr", p, ck)
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import attention, mlp, ssm
 from repro_torch.models.common import ModelConfig, apply_norm, norm_params
@@ -24,6 +25,18 @@ ATTENTION_KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe",
 MIXERS = {"mlstm": ssm.MLSTM, "slstm": ssm.SLSTM, "mamba": ssm.Mamba2}
 #: the reference's ``gather_dtype``: the wire dtype of the in-loop gather
 GATHER_DTYPE = torch.bfloat16
+
+
+def gathered(p):
+    """A slot parameter on the in-loop gather's wire: cast to
+    `GATHER_DTYPE` and, a ``DTensor``, redistributed to all-``Replicate``
+    (the reference's ``with_sharding_constraint(a.astype(bf16), P())``),
+    one bf16 all-gather per mesh dim it is sharded on."""
+    p = p.to(GATHER_DTYPE)
+    if isinstance(p, DTensor):
+        return p.redistribute(p.device_mesh,
+                              [Replicate()] * p.device_mesh.ndim)
+    return p
 
 
 class Layer(torch.nn.Module):
@@ -114,8 +127,9 @@ class Stack(torch.nn.Module):
         backward pass), the reference's ``jax.checkpoint(body,
         nothing_saveable)`` over its scan body.  ``gather_params``: a
         non-shared slot's parameters are cast to `GATHER_DTYPE` inside
-        the period, the reference's ZeRO-3 gather on its bf16 wire; on one
-        device that is the cast alone, a change in the math."""
+        the period and, on a mesh, all-gathered in it (`gathered`), the
+        reference's ZeRO-3 gather on its bf16 wire; on one device that is
+        the cast alone, a change in the math."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_pro = []
         for li, layer in enumerate(self.prologue):
@@ -134,7 +148,7 @@ class Stack(torch.nn.Module):
                     kw = {"cache": c, "q_offset": q_offset}
                     if gather_params and si not in cfg.shared_slots:
                         h, nc, aux = torch.func.functional_call(
-                            layer, {n: p.to(GATHER_DTYPE) for n, p in
+                            layer, {n: gathered(p) for n, p in
                                     layer.named_parameters()}, args, kw)
                     else:
                         h, nc, aux = layer(*args, **kw)

@@ -9,14 +9,28 @@ parameters) and the config, as the reference takes its parameter tree and
 the config, so one set of f32 parameters serves any compute dtype.  Every
 apply casts the f32 parameters to the compute dtype, the reference's
 semantics.
+
+On a mesh (parameters laid out as ``DTensor``s by
+`repro_torch.distributed.sharding.distribute_module`, batches and caches
+by its specs) the entry points run on ``DTensor``s, each under
+`repro_torch.distributed.sharding.on_mesh`.  Two places take another
+route than one device's: the embedding gather is ``F.embedding`` (a
+vocab-sharded table is looked up where it lies, each rank masking the
+ids outside its rows and the results summed), and the loss's log-sum-exp
+and gold logit reduce over the sharded vocab (`_lse_gold`), so the (B, S,
+V) logits are never gathered.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.core.gw import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import mesh_of, on_mesh, pin
 from repro_torch.models import blocks, common
 from repro_torch.models.common import ModelConfig, apply_norm, norm_params
 
@@ -57,10 +71,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _embed(model: LM, batch, cfg: ModelConfig):
     dt = cfg.compute_dtype
     if cfg.input_mode == "tokens":
+        if isinstance(model.embed, DTensor):
+            # each rank's rows, the others masked to 0: summed right away
+            # (an all-reduce of (B, S, d)), once, as its mask is one-shot;
+            # pinned, so that a Partial gradient is reduced before it
+            # reaches the masked lookup's backward
+            x = torch.nn.functional.embedding(batch["tokens"], _vocab_only(
+                model.embed))
+            return pin(x.redistribute(x.device_mesh, [
+                Replicate() if p.is_partial() else p
+                for p in x.placements])).to(dt)
         # gather, then cast: the rows of embed.to(dt), bit for bit
         return model.embed[batch["tokens"]].to(dt)
     return torch.einsum("bsd,de->bse", batch["embeddings"].to(dt),
                         model.in_proj.to(dt))
+
+
+def _vocab_only(embed: DTensor) -> DTensor:
+    """The embedding table with its vocab dim the only one sharded: a
+    ``d_model`` shard (an FSDP layout) is gathered first, as a masked
+    lookup takes the vocab dim alone."""
+    pl = [p if p == Shard(0) else Replicate() for p in embed.placements]
+    return embed if pl == list(embed.placements) else embed.redistribute(
+        embed.device_mesh, pl)
 
 
 def _head(model: LM, x, cfg: ModelConfig):
@@ -86,6 +119,12 @@ def forward(model: LM, batch, cfg: ModelConfig, return_hidden: bool = False,
             remat: bool = False, gather_params: bool = False):
     """→ (logits (B,S,V) f32, aux_loss[, hidden (B,S,d)]).  ``remat`` and
     ``gather_params`` as in `repro_torch.models.blocks.Stack.forward`."""
+    with on_mesh(mesh_of(model)):
+        return _forward(model, batch, cfg, return_hidden, remat,
+                        gather_params)
+
+
+def _forward(model, batch, cfg, return_hidden, remat, gather_params):
     x = _embed(model, batch, cfg)
     b, s = x.shape[:2]
     positions = _default_positions(batch, cfg, s, b, x.device)
@@ -104,20 +143,44 @@ def loss_fn(model: LM, batch, cfg: ModelConfig, aux_weight: float = 0.01,
     """Next-token cross-entropy (+ MoE aux + z-loss); positions with a
     label < 0 are masked.  The gold logit is a one-hot contraction, as in
     the reference."""
-    logits, aux = forward(model, batch, cfg, remat=remat,
-                          gather_params=gather_params)
-    labels = batch["labels"]
-    mask = (labels >= 0).float()
-    labels = torch.clamp_min(labels, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    onehot = torch.nn.functional.one_hot(labels, cfg.vocab_size).to(
-        logits.dtype)
-    gold = torch.einsum("bsv,bsv->bs", logits, onehot)
-    nll = (lse - gold) * mask
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    ce = nll.sum() / denom
-    z = ((lse * mask) ** 2).sum() / denom
-    return ce + aux_weight * aux + z_weight * z, {"ce": ce, "aux": aux}
+    with on_mesh(mesh_of(model)):
+        logits, aux = _forward(model, batch, cfg, False, remat,
+                               gather_params)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        labels = torch.clamp_min(labels, 0)
+        lse, gold = _lse_gold(logits, labels, cfg.vocab_size)
+        nll = (lse - gold) * mask
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ce = nll.sum() / denom
+        z = ((lse * mask) ** 2).sum() / denom
+        return ce + aux_weight * aux + z_weight * z, {"ce": ce, "aux": aux}
+
+
+def _lse_gold(logits, labels, vocab: int):
+    """(log-sum-exp over the vocab, the gold logit), each (B,S).  On a
+    ``DTensor`` the vocab stays where it lies: the log-sum-exp is
+    ``torch.logsumexp``'s own decomposition (max, sum of exp, log) with
+    each reduction over the sharded vocab a ``Partial`` that DTensor
+    all-reduces at (B,S), and the one-hot is built from a vocab ``arange``
+    sharded as the logits' vocab dim, so its contraction with the logits
+    (one nonzero term: the gold logit, exactly) is local too."""
+    if not isinstance(logits, DTensor):
+        onehot = torch.nn.functional.one_hot(labels, vocab).to(logits.dtype)
+        return (torch.logsumexp(logits, dim=-1),
+                torch.einsum("bsv,bsv->bs", logits, onehot))
+    m = logits.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    ids = distribute_tensor(
+        torch.arange(vocab, device=logits.to_local().device),
+        logits.device_mesh, [Shard(0) if p == Shard(2) else Replicate()
+                             for p in logits.placements],
+        src_data_rank=None)
+    onehot = (labels[..., None] == ids).to(logits.dtype)
+    # pinned: their gradients come back laid out as they are (the batch
+    # split, the vocab whole), so the (B,S,V) gradient lies as the logits
+    # do, with no all-to-all before the head's backward
+    return pin(lse), pin(torch.einsum("bsv,bsv->bs", logits, onehot))
 
 
 # ---------------------------------------------------------------------------
@@ -125,15 +188,36 @@ def loss_fn(model: LM, batch, cfg: ModelConfig, aux_weight: float = 0.01,
 # ---------------------------------------------------------------------------
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device=None):
-    """Zeroed caches on ``device`` (the CUDA device by default)."""
-    return blocks.stack_cache_init(cfg, batch, max_len, dtype,
-                                   resolve_device(device))
+               device=None, mesh=None):
+    """Zeroed caches on ``device`` (the CUDA device by default); with
+    ``mesh`` (a ``DeviceMesh``), ``DTensor``s laid out by
+    `repro_torch.distributed.sharding.cache_specs` over its data axes."""
+    caches = blocks.stack_cache_init(cfg, batch, max_len, dtype,
+                                     resolve_device(device))
+    if mesh is None:
+        return caches
+    shape = sharding.mesh_shape(mesh)
+    specs = sharding.cache_specs(caches, shape,
+                                 sharding.data_axes_of(shape))
+
+    def walk(c, s):
+        if isinstance(c, dict):
+            return {k: (c[k] if k == "length" else walk(c[k], s[k]))
+                    for k in c}
+        if isinstance(c, (list, tuple)):
+            return type(c)(walk(a, b) for a, b in zip(c, s))
+        return sharding.distribute(c, mesh, s, src_data_rank=None)
+    return walk(caches, specs)
 
 
 def prefill(model: LM, batch, cfg: ModelConfig, caches):
     """A full-sequence forward that fills ``caches`` (in place); returns
     (last token's logits (B,V) f32, caches)."""
+    with on_mesh(mesh_of(model)):
+        return _prefill(model, batch, cfg, caches)
+
+
+def _prefill(model, batch, cfg, caches):
     x = _embed(model, batch, cfg)
     b, s = x.shape[:2]
     positions = _default_positions(batch, cfg, s, b, x.device)
@@ -147,6 +231,11 @@ def decode_step(model: LM, token_batch, caches, cfg: ModelConfig,
     """One decode step.  token_batch: {"tokens": (B,1)} or {"embeddings":
     (B,1,d)}; position: (B,1) or (B,1,3), by default the first cache's
     length (0 for a stack with no attention cache)."""
+    with on_mesh(mesh_of(model)):
+        return _decode_step(model, token_batch, caches, cfg, position)
+
+
+def _decode_step(model, token_batch, caches, cfg, position):
     x = _embed(model, token_batch, cfg)
     b = x.shape[0]
     if position is None:

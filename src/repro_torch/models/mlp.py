@@ -9,12 +9,15 @@ descending sort: on ties the lower index first), queue positions from a
 cumsum over (token, k) in token-major order, tokens over capacity dropped,
 and the one-hot dispatch and combine contractions, so its sums are the
 reference's.  The reference's vmap over groups is a leading group axis.
+On a mesh the routing runs replicated (`MoE.forward`).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.nn.functional import silu
 
+from repro_torch.distributed.sharding import pin
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig
 
@@ -81,35 +84,56 @@ class MoE(torch.nn.Module):
         n_groups = t // g
         cap = max(1, int(g * topk / e * cfg.moe_capacity_factor))
 
-        xt = x.reshape(n_groups, g, d)
+        xt = pin(x.reshape(n_groups, g, d))
         logits = torch.einsum("ngd,de->nge", xt, self.router.to(dt))
         probs = torch.softmax(logits.float(), dim=-1)
-        top_p, top_e = top_k_stable(probs, topk)                # (n,g,topk)
-        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-        pg = top_p.to(dt)
-
-        # position of each (token, k) within its expert's queue
-        onehot = torch.nn.functional.one_hot(top_e, e).float()  # (n,g,k,e)
-        flat = onehot.reshape(n_groups, g * topk, e)
-        pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, g, topk, e)
-        pos = (pos * onehot).sum(-1)                            # (n,g,k)
-        keep = (pos < cap).float()
-        caphot = (pos[..., None] == torch.arange(
-            cap, device=x.device, dtype=pos.dtype)).float()     # (n,g,k,cap)
-        disp = torch.einsum("ngke,ngkc->ngec", onehot * keep[..., None],
-                            caphot)
-        comb = torch.einsum("ngke,ngkc->ngec",
-                            onehot * (keep * pg)[..., None], caphot)
+        if isinstance(probs, DTensor):
+            # the routing reads whole groups (a top-k, a cumsum over the
+            # group's (token, k) queue): it runs replicated, on the
+            # probabilities all-gathered, (n, g, e) f32, and its
+            # replicated results enter the dispatch again as DTensors
+            mesh = probs.device_mesh
+            rep = [Replicate()] * mesh.ndim
+            local = probs.redistribute(mesh, rep).to_local(
+                grad_placements=rep)
+            disp, comb, aux = (DTensor.from_local(t, mesh, rep,
+                                                  run_check=False)
+                               for t in _route(local, e, topk, cap, dt))
+        else:
+            disp, comb, aux = _route(probs, e, topk, cap, dt)
         xin = torch.einsum("ngec,ngd->necd", disp.to(dt), xt)   # (n,e,cap,d)
         hg = torch.einsum("necd,edf->necf", xin, self.w_gate.to(dt))
         hu = torch.einsum("necd,edf->necf", xin, self.w_up.to(dt))
         ho = torch.einsum("necf,efd->necd", silu(hg) * hu,
                           self.w_down.to(dt))
-        out = torch.einsum("ngec,necd->ngd", comb.to(dt), ho).reshape(b, s, d)
+        out = pin(torch.einsum("ngec,necd->ngd", comb.to(dt), ho)
+                  ).reshape(b, s, d)
         if self.shared is not None:
             out = out + self.shared(x, cfg)
-        # auxiliary load-balance loss (Switch): e·Σ_e f_e·P_e
-        me = torch.nn.functional.one_hot(top_e[..., 0], e).float().mean(
-            dim=(0, 1))
-        pe = probs.mean(dim=(0, 1))
-        return out, e * (me * pe).sum()
+        return out, aux
+
+
+def _route(probs, e: int, topk: int, cap: int, dt):
+    """The top-k routing of (n, g, e) probabilities: (dispatch, combine
+    (n, g, e, cap), the auxiliary load-balance loss)."""
+    top_p, top_e = top_k_stable(probs, topk)                    # (n,g,topk)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    pg = top_p.to(dt)
+    n_groups, g = probs.shape[:2]
+
+    # position of each (token, k) within its expert's queue
+    onehot = torch.nn.functional.one_hot(top_e, e).float()      # (n,g,k,e)
+    flat = onehot.reshape(n_groups, g * topk, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, g, topk, e)
+    pos = (pos * onehot).sum(-1)                                # (n,g,k)
+    keep = (pos < cap).float()
+    caphot = (pos[..., None] == torch.arange(
+        cap, device=probs.device, dtype=pos.dtype)).float()     # (n,g,k,cap)
+    disp = torch.einsum("ngke,ngkc->ngec", onehot * keep[..., None], caphot)
+    comb = torch.einsum("ngke,ngkc->ngec",
+                        onehot * (keep * pg)[..., None], caphot)
+    # auxiliary load-balance loss (Switch): e·Σ_e f_e·P_e
+    me = torch.nn.functional.one_hot(top_e[..., 0], e).float().mean(
+        dim=(0, 1))
+    pe = probs.mean(dim=(0, 1))
+    return disp, comb, e * (me * pe).sum()

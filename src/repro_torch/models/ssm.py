@@ -8,12 +8,15 @@ xLSTM normalizer n_t rides as a ones column appended to v.  sLSTM is a true
 time recurrence: a host loop over the sequence.  Mamba2's causal
 convolution sums its taps in order, as the reference does (not
 ``conv1d``), and its softplus is ``logaddexp(x, 0)`` with no threshold.
+On a mesh the scans, the recurrence and the convolution run on each
+rank's batch shard (`repro_torch.distributed.sharding.batch_local`).
 """
 from __future__ import annotations
 
 import torch
 from torch.nn.functional import silu
 
+from repro_torch.distributed.sharding import batch_local
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig
 
@@ -138,13 +141,14 @@ class MLSTM(torch.nn.Module):
         xi, z = up[..., :d_in], up[..., d_in:]
         q, k, v_aug, log_f = self._qkvf(xi, cfg)
         if cache is None:
-            y, _ = gla_chunked(q, k, v_aug, log_f)
+            y, _ = batch_local(gla_chunked, q, k, v_aug, log_f)
             new_cache = None
         elif s == 1:
-            S_new, y = gla_decode_step(cache["state"], q, k, v_aug, log_f)
+            S_new, y = batch_local(gla_decode_step, cache["state"], q, k,
+                                   v_aug, log_f)
             new_cache = {"state": S_new}
         else:  # prefill: chunked, keep the final state
-            y, S = gla_chunked(q, k, v_aug, log_f)
+            y, S = batch_local(gla_chunked, q, k, v_aug, log_f)
             new_cache = {"state": S}
         num, den = y[..., :-1], y[..., -1:]
         hblk = (num / torch.clamp_min(den.abs(), 1.0)).to(dt)
@@ -185,29 +189,37 @@ class SLSTM(torch.nn.Module):
         dh = d // h
         wx = (torch.einsum("bsd,de->bse", x, self.w_gates.to(dt))
               + self.b_gates.to(dt)).reshape(b, s, h, 4 * dh)
-        r = self.r_gates.float()
-        if cache is None:
-            z = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-            c_, n_, h_, m_ = z, z, z, z
-        else:
-            c_, n_, h_, m_ = cache["carry"]
-        hs = []
-        for t in range(s):
-            g = wx[:, t].float() + torch.einsum("bhd,hde->bhe", h_, r)
-            it, ft, zt, ot = g.chunk(4, dim=-1)
-            lf = log_sigmoid(ft)
-            m_new = torch.maximum(lf + m_, it)
-            i = torch.exp(it - m_new)
-            f = torch.exp(lf + m_ - m_new)
-            c_ = f * c_ + i * torch.tanh(zt)
-            n_ = f * n_ + i
-            h_ = torch.sigmoid(ot) * c_ / torch.clamp_min(n_, 1e-6)
-            m_ = m_new
-            hs.append(h_)
-        y = torch.stack(hs, dim=1).reshape(b, s, d).to(dt)
-        out = torch.einsum("bsd,de->bse", y, self.w_out.to(dt))
-        new_cache = {"carry": (c_, n_, h_, m_)} if cache is not None else None
+        carry = cache["carry"] if cache is not None else (None,) * 4
+        y, *carry = batch_local(_slstm_scan, wx, *carry,
+                                whole=(self.r_gates.float(),))
+        out = torch.einsum("bsd,de->bse", y.to(dt), self.w_out.to(dt))
+        new_cache = {"carry": tuple(carry)} if cache is not None else None
         return out, new_cache
+
+
+def _slstm_scan(wx, c_, n_, h_, m_, r):
+    """sLSTM's recurrence over time: wx (B,S,H,4dh) the input gates, the
+    carry (c, n, h, m) (each (B,H,dh) f32, or None: zeros), r (H,dh,4dh)
+    f32.  Returns (y (B,S,H·dh) f32, c, n, h, m)."""
+    b, s, h, dh4 = wx.shape
+    if c_ is None:
+        z = torch.zeros((b, h, dh4 // 4), dtype=torch.float32,
+                        device=wx.device)
+        c_, n_, h_, m_ = z, z, z, z
+    hs = []
+    for t in range(s):
+        g = wx[:, t].float() + torch.einsum("bhd,hde->bhe", h_, r)
+        it, ft, zt, ot = g.chunk(4, dim=-1)
+        lf = log_sigmoid(ft)
+        m_new = torch.maximum(lf + m_, it)
+        i = torch.exp(it - m_new)
+        f = torch.exp(lf + m_ - m_new)
+        c_ = f * c_ + i * torch.tanh(zt)
+        n_ = f * n_ + i
+        h_ = torch.sigmoid(ot) * c_ / torch.clamp_min(n_, 1e-6)
+        m_ = m_new
+        hs.append(h_)
+    return torch.stack(hs, dim=1).reshape(b, s, -1), c_, n_, h_, m_
 
 
 def slstm_cache_init(cfg: ModelConfig, batch: int, dtype, device=None):
@@ -271,9 +283,10 @@ class Mamba2(torch.nn.Module):
         proj = torch.einsum("bsd,de->bse", x, self.w_in.to(dt_))
         z, xbc_dt = proj[..., :d_in], proj[..., d_in:]
         xbc, dt_raw = xbc_dt[..., :d_in + 2 * st], xbc_dt[..., d_in + 2 * st:]
-        xbc, new_conv = causal_conv(xbc, self.conv_w.to(dt_),
-                                    self.conv_b.to(dt_),
-                                    cache["conv"] if cache else None)
+        xbc, new_conv = batch_local(
+            lambda x_, c_, w_, b_: causal_conv(x_, w_, b_, c_), xbc,
+            cache["conv"] if cache else None,
+            whole=(self.conv_w.to(dt_), self.conv_b.to(dt_)))
         xbc = silu(xbc)
         xs, b_in, c_in = (xbc[..., :d_in], xbc[..., d_in:d_in + st],
                           xbc[..., d_in + st:])
@@ -285,13 +298,14 @@ class Mamba2(torch.nn.Module):
         k = b_in[:, :, None, :].expand(b, s, nh, st)
         q = c_in[:, :, None, :].expand(b, s, nh, st)
         if cache is None:
-            y, _ = gla_chunked(q, k, v, log_f)
+            y, _ = batch_local(gla_chunked, q, k, v, log_f)
             new_cache = None
         elif s == 1:
-            S_new, y = gla_decode_step(cache["state"], q, k, v, log_f)
+            S_new, y = batch_local(gla_decode_step, cache["state"], q, k, v,
+                                   log_f)
             new_cache = {"state": S_new, "conv": new_conv}
         else:
-            y, S = gla_chunked(q, k, v, log_f)
+            y, S = batch_local(gla_chunked, q, k, v, log_f)
             new_cache = {"state": S, "conv": new_conv}
         y = y + xh * self.d_skip.to(dt_)[None, None, :, None]
         y = y.reshape(b, s, d_in) * silu(z)

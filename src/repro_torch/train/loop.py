@@ -16,6 +16,17 @@ the teacher's, both in f32, through
 `repro_torch.core.losses.fgw_alignment_loss_batch`: one batched solve on
 the Sinkhorn half-step kernels (B1/B2) when ``gw_align.sinkhorn_backend``
 is "auto" on the card, and one implicit backward pass (plain PyTorch).
+
+On a mesh.  `shard_state` lays a state out on a ``DeviceMesh`` (the
+reference's ``in_shardings``): parameters by
+`repro_torch.distributed.sharding.param_specs`, the moments by
+`zero_specs` (ZeRO-1).  `train_step` on such a state splits each
+microbatch over the mesh's data axes by `batch_specs` and runs the same
+step on ``DTensor``s: the gradients' reductions come from their
+``Partial`` placements, and a moment sharded over ``data`` is updated in
+its own layout (`repro_torch.train.optimizer.apply_updates`).  The FGW
+term's kernels take local tensors: each rank solves the lanes of its data
+shard (`_fgw_term`).
 """
 from __future__ import annotations
 
@@ -23,9 +34,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import losses as gw_losses
 from repro_torch.core.gw import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import optimizer as optim
@@ -86,6 +99,52 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     return state
 
 
+def shard_state(state: TrainState, mesh, strategy: str = "2d"
+                ) -> TrainState:
+    """Lay ``state`` out on ``mesh`` (a ``DeviceMesh``) in place: each
+    parameter becomes a ``DTensor`` by `sharding.param_specs`, AdamW's
+    ``m`` and ``v`` by `sharding.zero_specs` (ZeRO-1: a ``data`` shard
+    more), the int8 error feedback as its parameter.  Every rank takes rank
+    0's values."""
+    shape = sharding.mesh_shape(mesh)
+    shapes = {k: tuple(p.shape) for k, p in state.params().items()}
+    pspecs = sharding.param_specs(shapes, shape, strategy)
+    zspecs = sharding.zero_specs(shapes, pspecs, shape)
+    sharding.distribute_module(state.model, mesh, pspecs)
+    opt = state.opt
+
+    def dist(tree, specs):
+        return {k: sharding.distribute(t, mesh, specs[k])
+                for k, t in tree.items()}
+    state.opt = optim.AdamWState(
+        m=dist(opt.m, zspecs), v=dist(opt.v, zspecs), step=opt.step,
+        ef=None if opt.ef is None else dist(opt.ef, pspecs))
+    return state
+
+
+def _fgw_term(hidden, teacher, cfg: gw_losses.AlignConfig):
+    """The mean FGW alignment loss over the batch's lanes.  On a mesh the
+    B1/B2 kernels take no ``DTensor``: the hidden states are laid out as
+    the teacher's (this rank's data shard, replicated on ``model``), each
+    rank solves its own lanes, and its lane mean, scaled by its share of
+    the lanes, is a ``Partial`` term of the batch mean over the data
+    axes (each lane's loss is its solo solve's; only the mean's summation
+    order changes)."""
+    if not isinstance(hidden, DTensor):
+        return gw_losses.fgw_alignment_loss_batch(hidden, teacher, cfg,
+                                                  device=hidden.device)
+    mesh = teacher.device_mesh
+    h = hidden.redistribute(mesh, teacher.placements).to_local()
+    t = teacher.to_local()
+    local = gw_losses.fgw_alignment_loss_batch(h, t, cfg, device=h.device)
+    local = local * (h.shape[0] / hidden.shape[0])
+    # a Partial's gradient comes back whole on each rank (from_local's
+    # backward keeps a replicated gradient), as each term's weight is 1
+    return DTensor.from_local(
+        local, mesh, [Partial() if isinstance(p, Shard) else Replicate()
+                      for p in teacher.placements], run_check=False)
+
+
 def _microbatch_loss(model: lm.LM, mb: dict, cfg: ModelConfig,
                      tcfg: TrainConfig):
     loss, metrics = lm.loss_fn(model, mb, cfg, remat=tcfg.remat,
@@ -93,12 +152,16 @@ def _microbatch_loss(model: lm.LM, mb: dict, cfg: ModelConfig,
     if tcfg.gw_align_weight > 0.0 and "teacher_h" in mb:
         _, _, hidden = lm.forward(model, mb, cfg, remat=tcfg.remat,
                                   return_hidden=True)
-        gw = gw_losses.fgw_alignment_loss_batch(
-            hidden.float(), mb["teacher_h"].float(), tcfg.gw_align,
-            device=hidden.device)
+        gw = _fgw_term(hidden.float(), mb["teacher_h"].float(),
+                       tcfg.gw_align)
         loss = loss + tcfg.gw_align_weight * gw
         metrics = {**metrics, "gw_align": gw}
     return loss, metrics
+
+
+def _full(x):
+    """A metric as a plain 0-d tensor, the same on every rank."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def to_device(batch: dict, device) -> dict:
@@ -125,6 +188,7 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     nmb = tcfg.microbatches
     model = state.model
     params = state.params()
+    mesh = sharding.mesh_of(model)
     batch = to_device(batch, next(iter(params.values())).device)
     n = next(iter(batch.values())).shape[0]
     if n % nmb:
@@ -132,27 +196,40 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     gacc = None
     lacc = torch.zeros((), dtype=torch.float32)
     metrics = {}
-    for i in range(nmb):
-        mb = {k: v[i * (n // nmb):(i + 1) * (n // nmb)]
-              for k, v in batch.items()}
+    with sharding.on_mesh(mesh):
+        for i in range(nmb):
+            mb = {k: v[i * (n // nmb):(i + 1) * (n // nmb)]
+                  for k, v in batch.items()}
+            if mesh is not None:
+                mb = sharding.distribute_batch(mb, mesh)
+            model.zero_grad(set_to_none=True)
+            loss, metrics = _microbatch_loss(model, mb, cfg, tcfg)
+            if isinstance(loss, DTensor):   # reduce a Partial loss first
+                loss = loss.redistribute(mesh, [Replicate()] * mesh.ndim)
+            loss.backward()
+            with torch.no_grad():
+                grads = {k: _grad_of(p) for k, p in params.items()}
+                if nmb == 1:    # 0 + g / 1 is g, bit for bit
+                    gacc = grads
+                elif gacc is None:
+                    gacc = {k: g / nmb for k, g in grads.items()}
+                else:
+                    for k, g in grads.items():
+                        gacc[k].add_(g / nmb)
+                lacc = _full(lacc.to(loss.device) + loss.detach() / nmb)
         model.zero_grad(set_to_none=True)
-        loss, metrics = _microbatch_loss(model, mb, cfg, tcfg)
-        loss.backward()
-        with torch.no_grad():
-            grads = {k: (p.grad if p.grad is not None
-                         else torch.zeros_like(p)).float()
-                     for k, p in params.items()}
-            if nmb == 1:    # 0 + g / 1 is g, bit for bit
-                gacc = grads
-            elif gacc is None:
-                gacc = {k: g / nmb for k, g in grads.items()}
-            else:
-                for k, g in grads.items():
-                    gacc[k].add_(g / nmb)
-            lacc = lacc.to(loss.device) + loss.detach() / nmb
-    model.zero_grad(set_to_none=True)
-    opt_metrics = optim.apply_updates(params, gacc, state.opt,
-                                      tcfg.optimizer)
+        opt_metrics = optim.apply_updates(params, gacc, state.opt,
+                                          tcfg.optimizer)
     state.step += 1
-    return {"loss": lacc, **opt_metrics,
-            **{k: v.detach() for k, v in metrics.items()}}
+    return {"loss": lacc, **{k: _full(v) for k, v in opt_metrics.items()},
+            **{k: _full(v.detach()) for k, v in metrics.items()}}
+
+
+def _grad_of(p) -> torch.Tensor:
+    """A parameter's gradient in f32 (zeros where it has none), laid out
+    as the parameter: a ``Partial`` gradient is reduced here (an
+    all-reduce, or a reduce-scatter onto a sharded parameter)."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.float()

@@ -1738,3 +1738,120 @@ def test_checkpoint_from_the_card_restores_on_the_cpu(dev, tmp_path):
     assert on_cpu["bf16"].dtype == torch.bfloat16
     assert torch.equal(on_cpu["bf16"], tree["bf16"].cpu())
     assert on_cpu["step"] == on_cpu["opt"]["step"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the sharded path: DTensor on a DeviceMesh over NCCL
+# ---------------------------------------------------------------------------
+
+# the sharded step against one card's: f32 sums in other orders (NCCL's
+# reductions, the shards' matmuls), chip_smoke.py's Q_F32_BAR
+_SHARDED_F32 = 1e-4
+
+
+def _four_cards():
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs 4 cards for the (2, 2) and (4, 1) meshes; "
+                    f"{n} here")
+
+
+def _one_card_step(dev_, gw_weight):
+    from repro_torch.train import loop
+    cfg, tcfg, state, batch = _train_smoke(dev_, gw_weight)
+    metrics = loop.train_step(state, batch, cfg, tcfg)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach().cpu().numpy() for k, p in state.params().items()},
+            {k: v.cpu().numpy() for k, v in state.opt.m.items()},
+            {k: v.cpu().numpy() for k, v in state.opt.v.items()})
+
+
+@pytest.mark.parametrize("gw_weight", [0.0, 0.5])
+def test_sharded_step_on_four_cards(dev, no_tf32, tmp_path, gw_weight):
+    """4 NCCL ranks (tests/_torch_dist.py): the smoke step on (2, 2)
+    ("2d") and (4, 1) ("dp"), with the FGW term on B1/B2 where its weight
+    is set, against one card's step from the same state."""
+    _four_cards()
+    from _torch_dist import Ranks, check_state
+    cfg, tcfg, _, batch = _train_smoke(dev, gw_weight)
+    cases = [{"kind": "step", "name": f"{s}/{m}", "cfg": cfg, "tcfg": tcfg,
+              "seed": 5, "batch": batch, "strategy": s, "mesh": m}
+             for s, m in (("2d", (2, 2)), ("dp", (4, 1)))]
+    ranks = Ranks(tmp_path, cases, device="cuda")
+    want = _one_card_step(dev, gw_weight)
+    bar = _TRAIN_GW_F32 if gw_weight else _SHARDED_F32
+    for c in cases:
+        got = ranks.case(c["name"])
+        check_state(got, *want, bar)
+        assert not any(got["layout"][k] for k in ("placements", "block",
+                                                  "zero"))
+
+
+def test_elastic_restore_on_four_cards(dev, no_tf32, tmp_path):
+    """Saved on (2, 2), restored on (4, 1) and (1, 4): every leaf the
+    saved state's bits; one step on (4, 1) within the sharded bar of one
+    card's step from the same state."""
+    _four_cards()
+    from _torch_dist import Ranks, check_state
+    cfg, tcfg, state, batch = _train_smoke(dev, 0.0)
+    ranks = Ranks(tmp_path, [{"kind": "elastic", "name": "elastic",
+                              "cfg": cfg, "tcfg": tcfg, "seed": 5,
+                              "batch": batch, "dir": str(tmp_path / "c")}],
+                  device="cuda")
+    got = ranks.case("elastic")
+    for mesh in ("4x1", "1x4"):
+        for k, p in state.params().items():
+            np.testing.assert_array_equal(got[mesh]["params"][k],
+                                          p.detach().cpu().numpy())
+        assert got[mesh]["laid"]
+    check_state(got["4x1"]["after"], *_one_card_step(dev, 0.0),
+                _SHARDED_F32)
+
+
+@pytest.fixture
+def one_rank(dev):
+    """A world of one NCCL rank on this card, and its (1, 1) mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield mesh.local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_on_a_one_by_one_mesh(dev, no_tf32, one_rank,
+                                            tmp_path):
+    """One card as a (1, 1) mesh: the step with the FGW term on B1/B2
+    against the unsharded step, and a checkpoint saved on the mesh
+    restored without one, bit for bit."""
+    from _torch_dist import check_state
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train import loop
+    cfg, tcfg, state, batch = _train_smoke(dev, 0.5)
+    loop.shard_state(state, one_rank)
+    ops.reset_launch_counts()
+    metrics = loop.train_step(state, batch, cfg, tcfg)
+    assert ops.LAUNCHES["sinkhorn_row_update"] == 2 * 2 * 20
+    got = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": {k: p.full_tensor().detach().cpu().numpy()
+                      for k, p in state.params().items()},
+           "m": {k: v.full_tensor().cpu().numpy()
+                 for k, v in state.opt.m.items()},
+           "v": {k: v.full_tensor().cpu().numpy()
+                 for k, v in state.opt.v.items()}}
+    check_state(got, *_one_card_step(dev, 0.5), _TRAIN_GW_F32)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, loop.state_tree(state))
+    plain = loop.init_state(cfg, tcfg, torch.Generator().manual_seed(1),
+                            dev)
+    tree = mgr.restore(loop.state_tree(plain))
+    for k, v in got["params"].items():
+        assert type(tree["params"][k]) is torch.Tensor
+        np.testing.assert_array_equal(tree["params"][k].cpu().numpy(), v)

@@ -3,6 +3,9 @@ distributed and launch packages included), its chip smoke script and its
 timing tools import neither JAX nor anything of the reference package
 ``repro``."""
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -37,6 +40,20 @@ def test_scan_covers_the_port():
             "ssm.py", "blocks.py", "lm.py", "common.py", "shapes.py",
             "smollm_360m.py", "zamba2_7b.py", "pipeline.py", "optimizer.py",
             "loop.py", "manager.py", "fault_tolerance.py", "sharding.py",
-            "train.py", "flops.py"} <= names
+            "train.py", "flops.py", "mesh.py", "collectives.py"} <= names
     for sub in ("data", "train", "checkpoint", "distributed"):
         assert ROOT / "src" / "repro_torch" / sub / "__init__.py" in FILES
+
+
+def test_importing_the_mesh_module_starts_no_process_group():
+    """As the reference's ``launch/mesh.py``: the meshes are built by
+    functions, so an import touches no process group (a fresh
+    interpreter, so that nothing else has started one)."""
+    code = ("import torch.distributed as d, repro_torch.launch.mesh as m, "
+            "repro_torch.launch.collectives; "
+            "assert not d.is_initialized(); "
+            "assert callable(m.make_mesh) and callable(m.local_mesh)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
