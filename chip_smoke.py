@@ -73,7 +73,7 @@ result line:
    beside the grid-less dense products), Run M (``gw_barycenter`` of four ``Grid1D``
    inputs of 2048–4096 points on a 4096-point support, annealed, adaptive)
    and Run N (sliced GW on two 10⁶-point clouds: the sorted method in f64
-   and f32 against the port's own CPU run (on 16 directions) and on a
+   and f32 against the port's own CPU run (on 8 directions) and on a
    rotated, permuted copy; ``sliced_plan`` on 8192 points and the warm start
    ``FullCoupling.from_sliced`` gives a kernels solve, beside a cold one;
    the grid method's 32 lanes of ``entropic_gw_batch`` on the dense and
@@ -102,7 +102,7 @@ result line:
    Then LM serving, through ``repro_torch.serve.engine.Engine`` (Run P;
    random weights from a seeded generator; no kernel of B1–B7 on this
    path, which the launch counts confirm): P(a), smollm-360m at its
-   published config (32 layers, d 960), batch 4, a 128-token prompt and 64
+   published config (32 layers, d 960), batch 4, a 128-token prompt and 32
    greedy tokens in f32 and bf16: prefill and every decode step's logits
    against the card's forward, the prompt's forward against the CPU's, a
    TF32 prefill that must miss the f32 bar, bf16 against f32 within 4× the
@@ -118,10 +118,10 @@ result line:
    smollm-360m`` as a subprocess.  Then training, through
    ``repro_torch.train.loop.train_step`` (Run Q; random weights from a
    seeded generator, ``SyntheticLM`` batches): Q(a), smollm-360m at its
-   published config, 8 × 256 tokens, one AdamW step on the card against
-   the same step on the CPU from one state (scalars, moments and
-   parameters; a TF32 step must miss the bar), bf16 against f32 within
-   4× the CPU's own distance, 2 microbatches and remat against one
+   published widths, 16 of its 32 layers, 8 × 256 tokens, one AdamW step
+   on the card against the same step on the CPU from one state (scalars,
+   moments and parameters; a TF32 step must miss the bar), bf16 against
+   f32 within 4× the CPU's own distance, 2 microbatches and remat against one
    plain step (remat's peak lower), the FGW distillation term with a
    second seeded model's hidden states as the teacher's, on B1/B2
    against the plain route (launches against the code's formula, the
@@ -131,20 +131,30 @@ result line:
    other architectures at P(b)'s widths and depths, 2 × 32 tokens: the
    card's step against the CPU's forward and backward, each moment
    within max(1e-4, 8× its one-ulp envelope).  Q(c), ``python -m
-   repro_torch.launch.train --arch smollm-360m --steps 8 --ckpt-every 4
-   --deterministic`` as subprocesses: SIGTERM after step 5 lands a
+   repro_torch.launch.train --arch smollm-360m --steps 4 --ckpt-every 2
+   --deterministic`` as subprocesses: SIGTERM after step 2 lands a
    checkpoint, the same command resumes from it, and the final state
    equals an uninterrupted run's bits; ``launch.serve --ckpt-dir``
    serves it.  Then the sharded path (Run R; one NCCL rank a card, at
    most 4, started by ``torch.distributed.run`` as ``chip_smoke.py
-   --run-r-rank``): smollm-360m at its published widths cut to 8 layers,
+   --run-r-rank``): smollm-360m at its published widths cut to 4 layers,
    Run Q(a)'s batch with the FGW term, 3 steps on (2, 2) "2d" and (4, 1)
    "dp" (one card: a (1, 1) mesh) against one card's steps and its
    one-ulp envelope, a plain f32 step, the bf16 in-loop gather's
    all-gathers, ZeRO-1's moment bytes and peaks a rank, a checkpoint
    saved on one mesh restored on another and on one card (equal bits),
    the sharded decode against one card's ``Engine``, and each profiled
-   step's collectives (``launch/collectives.py``) and NCCL share.
+   step's collectives (``launch/collectives.py``) and NCCL share.  Then
+   the production dry run (Run S, ``repro_torch.launch.dryrun`` in a
+   subprocess, ``chip_smoke.py --run-s``: its fake group of 256 or 512
+   ranks shares no process with Run R's NCCL ranks): S(a) smollm-360m's
+   cells on the 16×16 mesh and deepseek-v2-lite-16b × train_4k on
+   2×16×16 through the CLI, each record without error, its argument
+   bytes the specs' reckoning, its peak at least its arguments, its
+   collectives of the kinds "2d" implies; S(b), with 4 cards, Run
+   R(a′)'s step dry-run on a fake (2, 2) group: its collectives by kind
+   and payload equal to Run R's rank 0's, its peak within `S_PEAK_BAR`
+   of what that step adds on ranks 1–3.
 4. Times: each kernel (CUDA events, with the card kept busy while the
    host enqueues, so they time the kernels) beside its bound and its
    plain version's time; the half-steps also at Run B's 4096² f64, B3 at
@@ -1920,7 +1930,9 @@ def phase_grad_path(torch, np, ops, core):
 #: Run K: unbalanced GW at Run A's width (ε, ρ: the reference's UGW tests,
 #: tests/test_gw_solvers.py:59, tests/test_solver.py:308), fixed and
 #: adaptive with annealing
-K_FIXED = dict(eps=1e-2, rho=1.0, outer_iters=10, sinkhorn_iters=200)
+# 5 outer steps (was 10: 18.4 s of kernels and plain, the script at its
+# 1200 s limit)
+K_FIXED = dict(eps=1e-2, rho=1.0, outer_iters=5, sinkhorn_iters=200)
 K_ADAPTIVE = dict(eps=1e-2, rho=1.0, tol=1e-7, eps_init=1e-1,
                   outer_iters=30, sinkhorn_iters=300)
 #: Run L: COOT at the shapes of MNIST → USPS (28² = 784 and 16² = 256
@@ -1938,7 +1950,8 @@ M_CONTROLS = dict(eps=5e-3, outer_iters=5, gw_iters=5, sinkhorn_iters=100,
 #: skewed marginal (a signed third moment on every axis); the grid method
 #: at the reference's `_sliced_grid` config
 N_N, P_N, N_N_PLAN, P_N_GRID, GRID_N = 1_000_000, 128, 8192, 32, 512
-P_N_CPU = 16          # N(a)'s directions compared with the CPU's run
+P_N_CPU = 8           # N(a)'s directions compared with the CPU's run
+                      # (16 took the CPU 12.4 s)
 N_AXES = (1.0, 2.0, 3.0)
 N_PLAN_SCALE = 0.125   # the plan run's clouds shrunk to O(1) costs
 N_GW_CONTROLS = dict(eps=5e-3, tol=1e-6, outer_iters=60, sinkhorn_iters=500)
@@ -2759,11 +2772,15 @@ def run_o_cache(torch, np, ops, core, add, walls, solver, stream):
               "the resumed one-lane batch's")
 
 
+# the serving CLI's stream (24 requests took it 43.8 s)
+O_DRIVER_REQUESTS = 8
+
+
 def run_o_driver(torch, walls):
     """Run O(c): the CLI driver on the card, as a subprocess."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--gw",
-           "--requests", "24", "--repeat-frac", "0.5", "--cache-capacity",
-           "64"]
+           "--requests", str(O_DRIVER_REQUESTS), "--repeat-frac", "0.5",
+           "--cache-capacity", "64"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     # the driver is a second process on the card: hand back the blocks
     # this process's allocator keeps cached (a pool for each stream the
@@ -2786,7 +2803,8 @@ def run_o_driver(torch, walls):
         say(f"    {ln}")
     check(proc.returncode == 0, "Run O(c): the driver failed: "
           + proc.stderr[-2000:])
-    check(len(answered) == 24 and any(ln.startswith("dispatches=")
+    check(len(answered) == O_DRIVER_REQUESTS and any(
+        ln.startswith("dispatches=")
                                       for ln in lines),
           "Run O(c): the driver did not answer every request and report")
 
@@ -2812,7 +2830,8 @@ def phase_serving_path(torch, np, ops, core):
 # phase 3, LM serving: Run P
 # ---------------------------------------------------------------------------
 
-P_A = dict(arch="smollm-360m", batch=4, prompt=128, new=64, max_len=256)
+# 32 greedy tokens (64 took 5.9 s f32 and 7.4 s bf16)
+P_A = dict(arch="smollm-360m", batch=4, prompt=128, new=32, max_len=256)
 P_B = dict(batch=2, prompt=64, new=16)
 # xLSTM's random-weight stack is chaotic (the reference's init draws the
 # sLSTM's recurrent weights (h, dh, 4dh) at std h^-½ = 0.5): a one-ulp
@@ -3309,7 +3328,10 @@ def phase_lm_path(torch, np, ops, core):
 # ``bf16_seq`` tokens, on the card and on the CPU (whose bf16 step is slow:
 # 4.8 s for 64 tokens on one host, 52.5 s on another; 32 since Run R joined
 # the script, which took 1180 s of its 1200 s limit on the slower host)
-Q_A = dict(arch="smollm-360m", batch=8, seq=256, overfit=10, bf16_seq=32)
+# smollm-360m at its published widths, 16 of its 32 layers (all 32 took
+# the CPU's f32 step 20.0 s and Run Q 237 s, the script at its limit)
+Q_A = dict(arch="smollm-360m", layers=16, batch=8, seq=256, overfit=10,
+           bf16_seq=32)
 Q_B = dict(batch=2, seq=32)
 Q_LR = 1e-3
 # f32 train step, card against CPU: the scalars (loss, ce, grad_norm, lr)
@@ -3327,7 +3349,9 @@ Q_F32_BAR = 1e-4
 # parameter's largest gradient from the f64 one (tests/train_spreads.py),
 # the CPU tests' bar: the kernels' step against the plain route's.
 Q_GW_BAR = 3e-3
-Q_DRIVER = dict(steps=8, ckpt_every=4, stop_after=5)
+# 4 steps, a checkpoint every 2, SIGTERM after step 2 (8, 4 and 5 took
+# the uninterrupted run 71.2 s)
+Q_DRIVER = dict(steps=4, ckpt_every=2, stop_after=2)
 
 
 def q_tcfg(loop, optim, **kw):
@@ -3424,7 +3448,8 @@ def run_q_a(torch, np, ops, core, lm, loop, optim, pipeline, configs, add,
     a = Q_A
     dev = torch.device("cuda")
     cpu = torch.device("cpu")
-    cfg = dataclasses.replace(configs.get(a["arch"]), dtype="float32")
+    cfg = dataclasses.replace(configs.get(a["arch"]), dtype="float32",
+                              num_layers=a["layers"])
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3885,12 +3910,13 @@ def phase_train_path(torch, np, ops, core):
 # phase 3, the sharded path: Run R
 # ---------------------------------------------------------------------------
 
-# smollm-360m at its published widths, depth cut to 8 of its 32 layers:
-# with all 32, Run R took ~150 s on one card (228 s on four), and the whole
-# script would pass ~1100 s of its 1200 s limit; Run Q(a)'s batch
-R_LAYERS = 8
+# smollm-360m at its published widths, depth cut to 4 of its 32 layers
+# and the sharded decode to 8 steps, Run Q(a)'s batch: with all 32 layers
+# Run R took ~150 s on one card (228 s on four), at 8 layers and 16 decode
+# steps 65.6 s, and the script, with Run S after it, its whole 1200 s
+R_LAYERS = 4
 R_STEPS = 3
-R_DECODE = dict(batch=4, prompt=64, new=16)
+R_DECODE = dict(batch=4, prompt=64, new=8)
 R_MAX_WORLD = 4
 R_TIMEOUT = 900
 # the gathered step's gradients are bf16 values, and a data-sharded batch
@@ -3898,6 +3924,7 @@ R_TIMEOUT = 900
 # roundings (tests/test_torch_sharded.py's GATHER_BF16)
 R_GATHER_BAR = 2 * 2.0 ** -8
 R_SCALARS = ("loss", "ce", "grad_norm", "gw_align")
+R_A_PRIME: list = []   # each rank's R(a′) collectives and added bytes
 
 
 def r_meshes(world):
@@ -3975,7 +4002,7 @@ def r_rank(out_dir):
     from repro_torch.data import pipeline
     from repro_torch.distributed import sharding
     from repro_torch.kernels import ops
-    from repro_torch.launch import collectives
+    from repro_torch.launch import collectives, dryrun
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -4246,9 +4273,20 @@ def r_rank(out_dir):
     # one card's: the sharded forward and backward at Run Q(a)'s f32 bars
     mesh, tag = first
     tp = q_tcfg(loop, optim)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     st = q_state(torch, lm, loop, optim, cfg, init, dev, tp)
     loop.shard_state(st, mesh, meshes[0][1])
-    m_ = loop.train_step(st, batch, cfg, tp)
+    torch.cuda.reset_peak_memory_stats()
+    recorder = dryrun.CollectiveRecorder()
+    with recorder:      # Run S(b) holds the dry run of this step to it
+        m_ = loop.train_step(st, batch, cfg, tp)
+    torch.cuda.synchronize()
+    out["a_prime"] = {"collectives": recorder.summary(),
+                      "added_bytes": torch.cuda.max_memory_allocated() - base,
+                      "mesh": [int(n) for n in mesh.mesh.shape],
+                      "strategy": meshes[0][1]}
     fulls = r_state_fulls(torch, st)
     if lead:
         one = q_state(torch, lm, loop, optim, cfg, init, dev, tp)
@@ -4481,6 +4519,7 @@ def phase_sharded_path(torch, np, ops, core):
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ops.LAUNCHES}
     walls.update(ranks[0]["walls"])
+    R_A_PRIME[:] = [r["a_prime"] for r in ranks]
     if world < 4:
         say(f"  Run R: the 2- and 4-card meshes ((2, 2) \"2d\", (4, 1) "
             f"\"dp\") did not run for want of cards ({world} here): R(a) "
@@ -4492,6 +4531,210 @@ def phase_sharded_path(torch, np, ops, core):
         f"{launches['sinkhorn_row_update']}/{launches['sinkhorn_col_update']}")
     shutil.rmtree(out / "ckpt", ignore_errors=True)
     return launches, walls
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the dry run: Run S
+# ---------------------------------------------------------------------------
+
+# S(a): the dry run's cells on the card (`repro_torch.launch.dryrun`'s
+# CLI, in one subprocess: the fake group shares no process with the NCCL
+# ranks of Run R)
+S_CELLS = (("smollm-360m", "all", "single"),
+           ("deepseek-v2-lite-16b", "train_4k", "multi"))
+S_TIMEOUT = 400
+# the collectives a "2d" layout issues: the activations' partial sums and
+# their reshuffles, the gradients' reductions, ZeRO-1's gathers of the
+# updated parameters, an MoE's shard-to-shard moves
+S_2D_KINDS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all"}
+# S(b): the dry run's peak against the memory one real rank's R(a′) step
+# adds (ranks 1–3; rank 0 also holds the one-card references)
+S_PEAK_BAR = (0.8, 1.25)
+
+
+def s_reckoning(rec, specs_mod, sharding, configs, shapes):
+    """A record's argument bytes from the specs alone: each tensor's
+    local elements (its size over the mesh axes that shard it, as the
+    specs shard only dims they divide) times its item size; the moments
+    f32."""
+    cfg = configs.get(rec["arch"])
+    shape = shapes[rec["shape"]]
+    mesh = dict(zip(("pod", "data", "model")[-len(rec["mesh"].split("x")):],
+                    map(int, rec["mesh"].split("x"))))
+
+    def local(full, spec):
+        n = 1
+        for d, size in enumerate(full):
+            entry = spec[d] if d < len(spec) else None
+            axes = (entry if isinstance(entry, tuple) else (entry,)
+                    if entry is not None else ())
+            n *= size // math.prod(mesh[a] for a in axes)
+        return n
+    params = dict(specs_mod.abstract_params(cfg).named_parameters())
+    shp = {k: tuple(p.shape) for k, p in params.items()}
+    pspecs = sharding.param_specs(shp, mesh, rec["strategy"])
+    total = sum(local(v, pspecs[k]) * params[k].element_size()
+                for k, v in shp.items())
+    if shape.kind == "train":
+        zspecs = sharding.zero_specs(shp, pspecs, mesh)
+        total += 2 * sum(local(v, zspecs[k]) * 4 for k, v in shp.items())
+    batch = specs_mod.batch_specs_for(cfg, shape)
+    bspecs = sharding.batch_specs(batch, mesh, sharding.data_axes_of(mesh))
+    total += sum(local(tuple(v.shape), bspecs[k]) * v.element_size()
+                 for k, v in batch.items())
+    if shape.kind != "train":
+        caches = specs_mod.abstract_caches(cfg, shape.global_batch,
+                                           shape.seq_len)
+        cspecs = sharding.cache_specs(caches, mesh,
+                                      sharding.data_axes_of(mesh))
+
+        def walk(c, sp):
+            if isinstance(c, dict):
+                return sum(walk(c[k], sp[k]) for k in c if k != "length")
+            if isinstance(c, (list, tuple)):
+                return sum(walk(a, b) for a, b in zip(c, sp))
+            return local(tuple(c.shape), sp) * c.element_size()
+        total += walk(caches, cspecs)
+    return total
+
+
+def s_cells(out_dir):
+    """The subprocess of Run S: S(a)'s CLI runs, then (with a path to
+    R(a′)'s cell) S(b)'s dry run of it on a fake (2, 2) group."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    rc = 0
+    for i, (arch, shape, mesh) in enumerate(S_CELLS):
+        rc |= dryrun.main(["--device", "cuda", "--arch", arch, "--shape",
+                           shape, "--mesh", mesh, "--out",
+                           str(out_dir / f"a{i}.json")])
+    cell = out_dir / "b_cell.json"
+    if cell.exists():
+        c = json.loads(cell.read_text())
+        cfg = dataclasses.replace(configs.get("smollm-360m"),
+                                  dtype="float32", num_layers=c["layers"])
+        shape = ShapeSpec("r_a_prime", "train", c["seq"], c["batch"])
+        rec = dryrun.run_cell("smollm-360m", shape.name, False,
+                              strategy=c["strategy"], remat=False,
+                              device="cuda", mesh_shape=tuple(c["mesh"]),
+                              cfg=cfg, shape=shape)
+        (out_dir / "b.json").write_text(json.dumps(rec))
+    return rc
+
+
+def phase_dryrun_path(torch, np, ops, core):
+    """Run S: the production dry run on the card, as a subprocess: S(a)
+    smollm-360m's cells on the 16×16 mesh and deepseek-v2-lite-16b's
+    train_4k on 2×16×16; S(b), with 4 cards, Run R(a′)'s step dry-run on
+    a fake (2, 2) group against Run R's real ranks."""
+    import shutil
+    import signal
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import specs as specs_mod
+    say("phase 3, the dry run: repro_torch.launch.dryrun on fake groups of "
+        "256 and 512 ranks, one rank's real shards on the card (Run S; no "
+        "kernel of B1–B7)")
+    walls = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "run_s"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    world = min(torch.cuda.device_count(), R_MAX_WORLD)
+    s_b = world >= 4 and len(R_A_PRIME) >= 4
+    if s_b:
+        a = R_A_PRIME[0]
+        (out / "b_cell.json").write_text(json.dumps(dict(
+            layers=R_LAYERS, seq=Q_A["seq"], batch=Q_A["batch"],
+            mesh=a["mesh"], strategy=a["strategy"])))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--run-s", str(out)], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=S_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    walls["S"] = time.perf_counter() - t0
+    (out / "cells.err").write_text(stderr)
+    for ln in stdout.splitlines():
+        if ln.startswith("["):
+            say("  Run S(a) " + ln)
+    first = stderr.find("Traceback")
+    check(proc.returncode == 0, f"Run S: the dry run exited with "
+          f"{proc.returncode}: " + (stderr[first:first + 4000]
+                                    if first >= 0 else stderr[-3000:]))
+    recs = [r for i in range(len(S_CELLS))
+            for r in json.loads((out / f"a{i}.json").read_text())]
+    ran = [r for r in recs if "skipped" not in r]
+    check(len(ran) == 4 and len(recs) == 5 and not any(
+        "error" in r for r in recs), f"Run S(a): {len(ran)} records run and "
+        f"{len(recs) - len(ran)} skipped (want 4 and 1), errors "
+        f"{[r.get('error') for r in recs if 'error' in r]}")
+    skipped = [r for r in recs if "skipped" in r]
+    check([(r["arch"], r["shape"]) for r in skipped]
+          == [("smollm-360m", "long_500k")],
+          f"Run S(a): skipped {[(r['arch'], r['shape']) for r in skipped]}")
+    for r in ran:
+        mem = r["memory_per_device"]
+        want = s_reckoning(r, specs_mod, sharding, configs, SHAPES)
+        kinds = set(r["collectives"]["counts"])
+        label = f"{r['arch']} × {r['shape']} [{r['mesh']}]"
+        say(f"  Run S(a) {label}: peak {mem['total_bytes'] / 2**30:.3f} GiB"
+            f"{' (out of memory: a lower bound)' if 'oom' in r else ''} of "
+            f"{r['hbm_bytes'] / 2**30:.2f}, fits {r['fits_hbm']}, arguments "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB (the specs' reckoning "
+            f"{want / 2**30:.3f}), first step {r['first_step_s']:.2f} s, "
+            f"{r['device_cost']['flops_per_device']:.4g} FLOPs and "
+            f"{r['device_cost']['bytes_per_device']:.4g} bytes a device, "
+            f"collectives {r['collectives']['counts']} "
+            f"({r['collectives']['wire_bytes_per_device'] / 2**30:.3f} GiB "
+            f"on the wire), dominant {r['dominant']}")
+        walls[f"S(a) {label} first step"] = r["first_step_s"]
+        check(mem["argument_bytes"] == want, f"Run S(a) {label}: argument "
+              f"bytes {mem['argument_bytes']} against the specs' {want}")
+        check(mem["total_bytes"] >= mem["argument_bytes"],
+              f"Run S(a) {label}: peak below the arguments")
+        check(kinds and kinds <= S_2D_KINDS and (
+            r["shape"] != "train_4k" or {"all-reduce", "all-gather"}
+            <= kinds), f"Run S(a) {label}: collective kinds {kinds}")
+    if s_b:
+        rec = json.loads((out / "b.json").read_text())
+        real = R_A_PRIME
+        got, want = rec["collectives"], real[0]["collectives"]
+        say(f"  Run S(b) R(a′)'s step dry-run on a fake {tuple(real[0]['mesh'])}"
+            f" group: collectives {got['counts']}, "
+            f"{got['payload_bytes_per_device'] / 2**20:.1f} MiB a device; "
+            f"Run R's rank 0: {want['counts']}, "
+            f"{want['payload_bytes_per_device'] / 2**20:.1f} MiB")
+        check(got["counts"] == want["counts"] and
+              got["payload_bytes_per_device"]
+              == want["payload_bytes_per_device"],
+              "Run S(b): the dry run's collectives differ from Run R's rank 0")
+        added = [r["added_bytes"] for r in real[1:]]
+        ratio = rec["memory_per_device"]["total_bytes"] / (sum(added)
+                                                            / len(added))
+        say(f"  Run S(b) peak {rec['memory_per_device']['total_bytes'] / 2**30:.3f} "
+            f"GiB against ranks 1–3's R(a′) step, "
+            + ", ".join(f"{b / 2**30:.3f}" for b in added)
+            + f" GiB: ratio {ratio:.3f} (bar {S_PEAK_BAR})")
+        check(S_PEAK_BAR[0] <= ratio <= S_PEAK_BAR[1],
+              f"Run S(b): peak ratio {ratio:.3f} outside {S_PEAK_BAR}")
+    else:
+        say(f"  Run S(b) did not run for want of cards ({world} here; it "
+            "needs Run R on 4)")
+    say(f"  Run S: {walls['S']:.1f} s of wall in all, the subprocess's "
+        "start included")
+    return {}, walls
 
 
 # ---------------------------------------------------------------------------
@@ -4850,7 +5093,8 @@ def main() -> int:
         for phase in (phase_lowrank_path, phase_batch_path,
                       phase_grad_path, phase_variants_path,
                       phase_serving_path, phase_lm_path,
-                      phase_train_path, phase_sharded_path):
+                      phase_train_path, phase_sharded_path,
+                      phase_dryrun_path):
             more, more_walls = phase(torch, np, ops, core)
             for k, v in more.items():
                 launches[k] += v
@@ -4888,4 +5132,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run-r-rank"]:
         sys.exit(r_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--run-s"]:
+        sys.exit(s_cells(sys.argv[2]))
     sys.exit(main())

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.train.optimizer import reference_leaf
@@ -285,23 +287,47 @@ def placements(spec: tuple, mesh) -> list:
 
 
 def distribute(x: torch.Tensor, mesh, spec: tuple,
-               src_data_rank=0) -> DTensor:
+               src_data_rank=0, fill=None) -> DTensor:
     """``x`` laid out by ``spec`` on ``mesh``: with ``src_data_rank=0``
     every rank's shard comes from rank 0's ``x``; with None each rank cuts
     its shard from its own ``x`` (the same on every rank) with no
-    communication."""
+    communication.  An ``x`` on the ``meta`` device has no values: with
+    ``fill`` each rank makes only its own shard (`local_shard`)."""
+    if x.is_meta and fill is not None:
+        return local_shard(x, mesh, spec, fill)
     return distribute_tensor(x, mesh, placements(spec, mesh),
                              src_data_rank=src_data_rank)
 
 
+def local_shard(x: torch.Tensor, mesh, spec: tuple, fill) -> DTensor:
+    """A ``DTensor`` of ``x``'s shape and dtype laid out by ``spec`` of
+    which this rank makes and holds only its own shard, ``fill(shape,
+    dtype, device)`` on the mesh's device: for a tensor whose whole never
+    exists anywhere (``x`` may lie on ``meta``; a production state, of
+    which a rank holds a 256th)."""
+    pl = placements(spec, mesh)
+    shape, _ = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return DTensor.from_local(fill(tuple(shape), x.dtype, dev), mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def zeros(shape, dtype, device) -> torch.Tensor:
+    """A `local_shard` fill: zeros (moments and caches start so)."""
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def distribute_module(module: torch.nn.Module, mesh, specs: dict,
-                      src_data_rank=0) -> torch.nn.Module:
+                      src_data_rank=0, fill=None) -> torch.nn.Module:
     """Replace each named parameter of ``module`` (in place) by a
-    parameter holding its ``DTensor`` laid out by ``specs[name]``."""
+    parameter holding its ``DTensor`` laid out by ``specs[name]``
+    (``fill``: as `distribute`'s, for a module on ``meta``)."""
     for name, p in list(module.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         sub = module.get_submodule(owner) if owner else module
-        d = distribute(p.detach(), mesh, specs[name], src_data_rank)
+        d = distribute(p.detach(), mesh, specs[name], src_data_rank, fill)
         sub._parameters[leaf] = torch.nn.Parameter(
             d, requires_grad=p.requires_grad)
     return module

@@ -170,6 +170,14 @@ def write_rows(buf, value, start: int):
         local[:, a - lo:b - lo] = value[:, a - start:b - start]
 
 
+def _roll(x, shift: int):
+    """``torch.roll(x, shift, 1)``; on a ``DTensor`` on each rank's batch
+    shard (torch 2.11's ``DTensor`` has no rule for ``roll``)."""
+    if not shift:
+        return x
+    return batch_local(torch.roll, x, shift, 1)
+
+
 class GQA(torch.nn.Module):
     """Grouped-query attention: ``wq`` (d,H,hd), ``wk``/``wv`` (d,KV,hd),
     ``wo`` (H·hd,d)."""
@@ -218,8 +226,8 @@ class GQA(torch.nn.Module):
             cache_len = kbuf.shape[1]
             if s >= cache_len:
                 shift = s % cache_len   # position p lands at slot p % len
-                write_rows(kbuf, torch.roll(k[:, -cache_len:], shift, 1), 0)
-                write_rows(vbuf, torch.roll(v[:, -cache_len:], shift, 1), 0)
+                write_rows(kbuf, _roll(k[:, -cache_len:], shift), 0)
+                write_rows(vbuf, _roll(v[:, -cache_len:], shift), 0)
             else:
                 write_rows(kbuf, k, 0)
                 write_rows(vbuf, v, 0)

@@ -191,7 +191,11 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device=None, mesh=None):
     """Zeroed caches on ``device`` (the CUDA device by default); with
     ``mesh`` (a ``DeviceMesh``), ``DTensor``s laid out by
-    `repro_torch.distributed.sharding.cache_specs` over its data axes."""
+    `repro_torch.distributed.sharding.cache_specs` over its data axes, of
+    which each rank makes only its own shard's zeros on the mesh's device
+    (the whole caches are laid out on ``meta``)."""
+    if mesh is not None:
+        device = "meta"
     caches = blocks.stack_cache_init(cfg, batch, max_len, dtype,
                                      resolve_device(device))
     if mesh is None:
@@ -206,7 +210,7 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     for k in c}
         if isinstance(c, (list, tuple)):
             return type(c)(walk(a, b) for a, b in zip(c, s))
-        return sharding.distribute(c, mesh, s, src_data_rank=None)
+        return sharding.local_shard(c, mesh, s, sharding.zeros)
     return walk(caches, specs)
 
 

@@ -9,7 +9,9 @@ descending sort: on ties the lower index first), queue positions from a
 cumsum over (token, k) in token-major order, tokens over capacity dropped,
 and the one-hot dispatch and combine contractions, so its sums are the
 reference's.  The reference's vmap over groups is a leading group axis.
-On a mesh the routing runs replicated (`MoE.forward`).
+On a mesh the routing runs replicated (`MoE.forward`), and where a
+rank holds only part of a group the tokens are first laid out over the
+data axes alone.
 """
 from __future__ import annotations
 
@@ -84,6 +86,15 @@ class MoE(torch.nn.Module):
         n_groups = t // g
         cap = max(1, int(g * topk / e * cfg.moe_capacity_factor))
 
+        split = (isinstance(x, DTensor) and n_groups > 1
+                 and _part_groups(x, g))
+        if split:
+            # a rank holding part of a group (the tokens split over more
+            # ranks than there are groups): the token dims laid out over
+            # the data axes alone first (an all-gather of (B_local, S, d)
+            # over the others), as DTensor cannot split the groups so;
+            # the output goes back in that layout too
+            x = x.redistribute(x.device_mesh, _over_data(x))
         xt = pin(x.reshape(n_groups, g, d))
         logits = torch.einsum("ngd,de->nge", xt, self.router.to(dt))
         probs = torch.softmax(logits.float(), dim=-1)
@@ -106,11 +117,29 @@ class MoE(torch.nn.Module):
         hu = torch.einsum("necd,edf->necf", xin, self.w_up.to(dt))
         ho = torch.einsum("necf,efd->necd", silu(hg) * hu,
                           self.w_down.to(dt))
-        out = pin(torch.einsum("ngec,necd->ngd", comb.to(dt), ho)
-                  ).reshape(b, s, d)
+        out = torch.einsum("ngec,necd->ngd", comb.to(dt), ho)
+        if split:   # and its gradient back in that layout before the view
+            out = out.redistribute(xt.device_mesh, xt.placements)
+            out = pin(pin(out).reshape(b, s, d))
+        else:
+            out = pin(out).reshape(b, s, d)
         if self.shared is not None:
             out = out + self.shared(x, cfg)
         return out, aux
+
+
+def _part_groups(x: DTensor, g: int) -> bool:
+    """Whether a rank's local tokens of ``x`` (B, S, d) are not whole
+    groups of ``g``."""
+    b, s = x.to_local().shape[:2]
+    return (b * s) % g != 0
+
+
+def _over_data(x: DTensor) -> list:
+    """``x``'s placements with every mesh dim but the data axes
+    (``pod``, ``data``) replicated."""
+    return [p if name in ("pod", "data") else Replicate()
+            for p, name in zip(x.placements, x.device_mesh.mesh_dim_names)]
 
 
 def _route(probs, e: int, topk: int, cap: int, dt):

@@ -14,6 +14,7 @@ rank's batch shard (`repro_torch.distributed.sharding.batch_local`).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.nn.functional import silu
 
 from repro_torch.distributed.sharding import batch_local
@@ -188,7 +189,14 @@ class SLSTM(torch.nn.Module):
         h = cfg.num_heads
         dh = d // h
         wx = (torch.einsum("bsd,de->bse", x, self.w_gates.to(dt))
-              + self.b_gates.to(dt)).reshape(b, s, h, 4 * dh)
+              + self.b_gates.to(dt))
+        if isinstance(wx, DTensor):
+            # its gates dim whole before the split into heads (a 16-wide
+            # shard of 4·d cannot split into 4 heads), as batch_local
+            # gathers it next anyway
+            wx = wx.redistribute(wx.device_mesh, [
+                Replicate() if p == Shard(2) else p for p in wx.placements])
+        wx = wx.reshape(b, s, h, 4 * dh)
         carry = cache["carry"] if cache is not None else (None,) * 4
         y, *carry = batch_local(_slstm_scan, wx, *carry,
                                 whole=(self.r_gates.float(),))

@@ -99,22 +99,26 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     return state
 
 
-def shard_state(state: TrainState, mesh, strategy: str = "2d"
-                ) -> TrainState:
+def shard_state(state: TrainState, mesh, strategy: str = "2d",
+                fill=None) -> TrainState:
     """Lay ``state`` out on ``mesh`` (a ``DeviceMesh``) in place: each
     parameter becomes a ``DTensor`` by `sharding.param_specs`, AdamW's
     ``m`` and ``v`` by `sharding.zero_specs` (ZeRO-1: a ``data`` shard
     more), the int8 error feedback as its parameter.  Every rank takes rank
-    0's values."""
+    0's values.  A state on the ``meta`` device (`init_state` there) has
+    none: each rank makes only its own shards, the parameters by ``fill``
+    (`sharding.local_shard`) and the moments and error feedback as
+    zeros, as `init_state` makes them."""
     shape = sharding.mesh_shape(mesh)
     shapes = {k: tuple(p.shape) for k, p in state.params().items()}
     pspecs = sharding.param_specs(shapes, shape, strategy)
     zspecs = sharding.zero_specs(shapes, pspecs, shape)
-    sharding.distribute_module(state.model, mesh, pspecs)
+    sharding.distribute_module(state.model, mesh, pspecs, fill=fill)
     opt = state.opt
 
     def dist(tree, specs):
-        return {k: sharding.distribute(t, mesh, specs[k])
+        return {k: sharding.distribute(t, mesh, specs[k],
+                                       fill=sharding.zeros)
                 for k, t in tree.items()}
     state.opt = optim.AdamWState(
         m=dist(opt.m, zspecs), v=dist(opt.v, zspecs), step=opt.step,
@@ -182,9 +186,10 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     """One optimizer update over ``tcfg.microbatches`` accumulation steps,
     in place on ``state``.  ``batch`` leaves (global_batch, ...), numpy
     arrays or tensors, moved to the model's device and split into
-    (microbatches, global_batch / microbatches, ...).  Returns the metrics
-    (0-d tensors): loss, grad_norm, lr, and the last microbatch's ce, aux
-    (and gw_align)."""
+    (microbatches, global_batch / microbatches, ...) (or, laid out already
+    on the mesh, split on each rank's rows: `_microbatch`).  Returns the
+    metrics (0-d tensors): loss, grad_norm, lr, and the last microbatch's
+    ce, aux (and gw_align)."""
     nmb = tcfg.microbatches
     model = state.model
     params = state.params()
@@ -198,10 +203,7 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     metrics = {}
     with sharding.on_mesh(mesh):
         for i in range(nmb):
-            mb = {k: v[i * (n // nmb):(i + 1) * (n // nmb)]
-                  for k, v in batch.items()}
-            if mesh is not None:
-                mb = sharding.distribute_batch(mb, mesh)
+            mb = _microbatch(batch, i, nmb, mesh)
             model.zero_grad(set_to_none=True)
             loss, metrics = _microbatch_loss(model, mb, cfg, tcfg)
             if isinstance(loss, DTensor):   # reduce a Partial loss first
@@ -223,6 +225,32 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     state.step += 1
     return {"loss": lacc, **{k: _full(v) for k, v in opt_metrics.items()},
             **{k: _full(v.detach()) for k, v in metrics.items()}}
+
+
+def _microbatch(batch: dict, i: int, nmb: int, mesh) -> dict:
+    """Microbatch ``i`` of ``nmb``: rows of the whole batch, split over
+    the mesh by `sharding.batch_specs`.  A batch already laid out
+    (``DTensor``s, as `repro_torch.launch.dryrun` makes it, whose whole
+    never exists) is split on each rank's own rows instead: microbatch
+    ``i`` is rows ``i``/``nmb`` of every rank's shard."""
+    n = next(iter(batch.values())).shape[0]
+    if not isinstance(next(iter(batch.values())), DTensor):
+        mb = {k: v[i * (n // nmb):(i + 1) * (n // nmb)]
+              for k, v in batch.items()}
+        return mb if mesh is None else sharding.distribute_batch(mb, mesh)
+    out = {}
+    for k, v in batch.items():
+        local = v.to_local()
+        if local.shape[0] % nmb:
+            raise ValueError(f"a local batch of {local.shape[0]} rows in "
+                             f"{nmb} microbatches")
+        m = local.shape[0] // nmb
+        shape = (n // nmb,) + tuple(v.shape[1:])
+        out[k] = DTensor.from_local(
+            local[i * m:(i + 1) * m], v.device_mesh, v.placements,
+            run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+    return out
 
 
 def _grad_of(p) -> torch.Tensor:

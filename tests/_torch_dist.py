@@ -339,8 +339,22 @@ def _elastic(case, mesh_of, dev):
     return out
 
 
+def _dryrun(case, mesh_of, dev):
+    """The dry run's share of a cell (`repro_torch.launch.dryrun.build_cell`
+    on the (2, 2) mesh of a real group) run once under its
+    `CollectiveRecorder`: the collectives a real step issues."""
+    from repro_torch.launch import dryrun
+    step_fn, args, _, _ = dryrun.build_cell(
+        case["arch"], case["shape"].name, mesh_of((2, 2)), cfg=case["cfg"],
+        shape=case["shape"])
+    recorder = dryrun.CollectiveRecorder()
+    with recorder:
+        step_fn(*args)
+    return recorder.summary()
+
+
 KINDS = {"step": _step, "decode": _decode, "collectives": _collectives,
-         "elastic": _elastic}
+         "elastic": _elastic, "dryrun": _dryrun}
 
 
 def main(job: str, device: str):

@@ -40,7 +40,8 @@ def test_scan_covers_the_port():
             "ssm.py", "blocks.py", "lm.py", "common.py", "shapes.py",
             "smollm_360m.py", "zamba2_7b.py", "pipeline.py", "optimizer.py",
             "loop.py", "manager.py", "fault_tolerance.py", "sharding.py",
-            "train.py", "flops.py", "mesh.py", "collectives.py"} <= names
+            "train.py", "flops.py", "mesh.py", "collectives.py", "specs.py",
+            "dryrun.py"} <= names
     for sub in ("data", "train", "checkpoint", "distributed"):
         assert ROOT / "src" / "repro_torch" / sub / "__init__.py" in FILES
 
@@ -53,6 +54,19 @@ def test_importing_the_mesh_module_starts_no_process_group():
             "repro_torch.launch.collectives; "
             "assert not d.is_initialized(); "
             "assert callable(m.make_mesh) and callable(m.local_mesh)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    """The dry run starts its fake group inside `run_cell`, and its specs
+    build nothing at import (a fresh interpreter)."""
+    code = ("import torch.distributed as d, repro_torch.launch.dryrun as m, "
+            "repro_torch.launch.specs; "
+            "assert not d.is_initialized(); "
+            "assert callable(m.run_cell) and callable(m.main)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
