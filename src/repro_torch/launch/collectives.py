@@ -37,8 +37,14 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 _WIRE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
                 "all-to-all": 1.0, "collective-permute": 1.0}
 
-# a backend event's name after ``nccl:`` / ``gloo:`` → the kind
+# a collective's name → the kind: a backend event's after ``nccl:`` /
+# ``gloo:``, or a ``_c10d_functional`` op's (what ``DTensor`` issues;
+# `repro_torch.launch.dryrun.CollectiveRecorder` reads those)
 _KINDS = {"all_reduce": "all-reduce", "allreduce": "all-reduce",
+          "all_reduce_coalesced": "all-reduce",
+          "all_gather_into_tensor": "all-gather",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "all_to_all_single": "all-to-all",
           "all_gather": "all-gather", "allgather": "all-gather",
           "_allgather_base": "all-gather",
           "all_gather_into_tensor_coalesced": "all-gather",
@@ -121,20 +127,30 @@ def ops(trace) -> list[dict]:
             n = _nelems(dims[0])
         else:
             n = _nelems(args.get("Input Dims", []))
-        nbytes = n * _DTYPE_BYTES.get(dtype, 4)
-        out.append({"kind": kind, "dtype": dtype, "payload_bytes": nbytes,
-                    "wire_bytes": nbytes * _WIRE_FACTOR[kind]})
+        out.append(record(kind, dtype, n * _DTYPE_BYTES.get(dtype, 4)))
     return out
 
 
-def parse(trace) -> dict:
-    """{"counts": kind → ops, "payload_bytes", "wire_bytes"} of a
-    trace's collectives (the reference's keys)."""
+def record(kind: str, dtype: str, payload_bytes: int) -> dict:
+    """One collective: {"kind", "dtype", "payload_bytes" (its result's
+    bytes), "wire_bytes" (the payload times `_WIRE_FACTOR`)}."""
+    return {"kind": kind, "dtype": dtype, "payload_bytes": payload_bytes,
+            "wire_bytes": payload_bytes * _WIRE_FACTOR[kind]}
+
+
+def summarize(records) -> dict:
+    """{"counts": kind → ops, "payload_bytes", "wire_bytes"} of a list of
+    `record`s (the reference's keys)."""
     out = {"counts": defaultdict(int), "payload_bytes": 0.0,
            "wire_bytes": 0.0}
-    for o in ops(trace):
+    for o in records:
         out["counts"][o["kind"]] += 1
         out["payload_bytes"] += o["payload_bytes"]
         out["wire_bytes"] += o["wire_bytes"]
     out["counts"] = dict(out["counts"])
     return out
+
+
+def parse(trace) -> dict:
+    """`summarize` of a trace's collectives (`ops`)."""
+    return summarize(ops(trace))

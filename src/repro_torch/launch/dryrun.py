@@ -56,9 +56,10 @@ the reference's formulas, ``first_step_s`` (the wall of the rank's run,
 card's memory; on the CPU `H100_80GB_HBM3_BYTES`).  A share that does
 not fit the card stops with an out-of-memory error: the cell's record
 then says so (``oom``), ``fits_hbm`` is false, ``total_bytes`` is the
-peak reached before it (a lower bound) and the counts are those made
-until then.  Any other failure is recorded with its traceback and `main`
-exits 1.
+peak reached before it (a lower bound), and ``device_cost``,
+``collectives``, ``roofline``, ``dominant`` and ``mfu_bound`` are null
+(they would count part of a step).  Any other failure is recorded with
+its traceback and `main` exits 1.
 
 The CPU group runs DTensor's shard-to-shard moves (an MoE's experts) as
 all-gathers where the card runs all-to-alls, so ``--device cpu`` counts
@@ -85,9 +86,9 @@ from torch.utils._pytree import tree_flatten
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.distributed import sharding
+from repro_torch.launch import collectives
 from repro_torch.launch import flops as flopcount
 from repro_torch.launch import specs as spec_mod
-from repro_torch.launch.collectives import _WIRE_FACTOR
 from repro_torch.launch.mesh import local_mesh, make_production_mesh
 from repro_torch.models import lm
 from repro_torch.train import loop as train_loop
@@ -105,52 +106,37 @@ H100_80GB_HBM3_BYTES = 85_017_493_504
 
 SEED = 0
 
-# a c10d functional collective → the reference's kind
-_KINDS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
-          "all_gather_into_tensor": "all-gather",
-          "all_gather_into_tensor_coalesced": "all-gather",
-          "reduce_scatter_tensor": "reduce-scatter",
-          "reduce_scatter_tensor_coalesced": "reduce-scatter",
-          "all_to_all_single": "all-to-all"}
-
-
 class CollectiveRecorder(TorchDispatchMode):
     """Records each ``_c10d_functional`` collective run under it (the ops
-    ``DTensor`` and the functional collectives issue) as (kind, result
-    shape, dtype, result bytes); the kind is the reference's name, or
-    the op's own where it has none (a broadcast)."""
+    ``DTensor`` and the functional collectives issue) as a
+    `repro_torch.launch.collectives.record` of its result, the yardstick
+    that a profiled trace's collectives are read with."""
 
     def __init__(self):
         super().__init__()
-        self.ops: list[tuple] = []
+        self.ops: list[dict] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(t is DTensor for t in types):
+        if DTensor in types:
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        from torch._guards import active_fake_mode
-        name = func._overloadpacket.__name__
-        if (func.namespace == "_c10d_functional"
-                and (name in _KINDS or name == "broadcast")
-                and active_fake_mode() is None):
+        kind = (collectives._KINDS.get(func._overloadpacket.__name__)
+                if func.namespace == "_c10d_functional" else None)
+        if kind is not None and not flopcount.faking():
             for t in tree_flatten(out)[0]:
                 if isinstance(t, torch.Tensor):
-                    self.ops.append((_KINDS.get(name, name), tuple(t.shape),
-                                     str(t.dtype).replace("torch.", ""),
-                                     t.numel() * t.element_size()))
+                    self.ops.append(collectives.record(
+                        kind, str(t.dtype).replace("torch.", ""),
+                        t.numel() * t.element_size()))
         return out
 
     def summary(self) -> dict:
         """{"counts": kind → ops, "payload_bytes_per_device",
         "wire_bytes_per_device"} (the reference's record keys)."""
-        counts: dict[str, int] = {}
-        payload = wire = 0.0
-        for kind, _, _, nbytes in self.ops:
-            counts[kind] = counts.get(kind, 0) + 1
-            payload += nbytes
-            wire += nbytes * _WIRE_FACTOR.get(kind, 1.0)
-        return {"counts": counts, "payload_bytes_per_device": payload,
-                "wire_bytes_per_device": wire}
+        s = collectives.summarize(self.ops)
+        return {"counts": s["counts"],
+                "payload_bytes_per_device": s["payload_bytes"],
+                "wire_bytes_per_device": s["wire_bytes"]}
 
 
 def _filler(gen: torch.Generator, high: int):
@@ -383,9 +369,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec["params_active"] = active_p
     rec["model_flops"] = mf
 
+    fl = rec["analytic"]["flops_global"]
+    if "oom" in rec:
+        # a share that stopped partway: no roofline from part of a step
+        rec.update(roofline=None, dominant=None, mfu_bound=None,
+                   model_vs_counted=mf / fl if fl else None)
+        if verbose:
+            print(f"[{rec['mesh']}] {arch} × {shape_name}: out of memory at "
+                  f"≥{rec['memory_per_device']['total_bytes'] / 2 ** 30:.2f}"
+                  f"GiB after {rec['first_step_s']:.1f}s", flush=True)
+        return rec
+
     # roofline terms (seconds)
-    fl = rec["analytic"]["flops_global"] or (
-        rec["device_cost"]["flops_per_device"] * chips)
+    fl = fl or rec["device_cost"]["flops_per_device"] * chips
     by = rec["analytic"]["bytes_global"]
     t_comp = fl / (chips * PEAK_FLOPS)
     t_mem_device = rec["device_cost"]["bytes_per_device"] / HBM_BW
@@ -404,8 +400,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if verbose:
         mem = rec["memory_per_device"]["total_bytes"] / 2 ** 30
         print(f"[{rec['mesh']}] {arch} × {shape_name}: "
-              f"first_step={rec['first_step_s']:.1f}s mem/dev={mem:.2f}GiB"
-              f"{' (OOM)' if 'oom' in rec else ''} dom={rec['dominant']} "
+              f"first_step={rec['first_step_s']:.1f}s mem/dev={mem:.2f}GiB "
+              f"dom={rec['dominant']} "
               f"terms(ms)=({t_comp * 1e3:.2f},{t_mem * 1e3:.2f},"
               f"{t_coll * 1e3:.2f}) mfu_bound={rec['mfu_bound']:.2f}",
               flush=True)
@@ -459,15 +455,17 @@ def _share(arch, shape_name, multi_pod, mesh_shape, world, device, rank,
             "argument_bytes": arg_bytes, "output_bytes": out_bytes,
             "temp_bytes": peak - arg_bytes - out_bytes,
             "total_bytes": peak}}
-        t = traffic.totals()
-        rec["device_cost"] = {
-            "flops_per_device": t["flops"] + t["elementwise_flops"],
-            "bytes_per_device": t["bytes"],
-            "transcendentals": t["transcendentals"]}
-        rec["collectives"] = recorder.summary()
-        if oom is not None:
+        if oom is None:
+            t = traffic.totals()
+            rec["device_cost"] = {
+                "flops_per_device": t["flops"] + t["elementwise_flops"],
+                "bytes_per_device": t["bytes"],
+                "transcendentals": t["transcendentals"]}
+            rec["collectives"] = recorder.summary()
+        else:   # counts of part of a step: none is kept
             rec["oom"] = oom
             rec["memory_per_device"]["peak_is_lower_bound"] = True
+            rec["device_cost"] = rec["collectives"] = None
         hbm = (torch.cuda.get_device_properties(0).total_memory
                if device == "cuda" else H100_80GB_HBM3_BYTES)
         rec["fits_hbm"] = oom is None and peak < hbm

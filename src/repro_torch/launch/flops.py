@@ -41,6 +41,8 @@ local shapes.  Collectives are not counted here
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
@@ -100,6 +102,8 @@ def _nbytes(t) -> int:
 
 
 def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):     # most ops' output: no flatten
+        return [tree]
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
@@ -182,6 +186,35 @@ def _pow_is_integer(args) -> bool:
         and float(e).is_integer()
 
 
+def faking() -> bool:
+    """Whether a fake tensor mode is active (``DTensor``'s sharding
+    propagation runs its ops under one: they compute nothing)."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+_SKIP, _PRODUCT = "skip", "product"
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(func) -> tuple:
+    """(whether to decompose ``func`` into the ops it is made of, how to
+    count it: `_SKIP`, `_PRODUCT`, a `_COMPOSITE` entry, or its
+    `OP_CLASS` class, None for elementwise), worked out once an op."""
+    if func.namespace in ("_c10d_functional", "c10d",
+                          "_c10d_functional_autograd"):
+        return False, _SKIP
+    if func._overloadpacket in flop_registry:
+        return False, _PRODUCT
+    name = op_name(func)
+    if name in _COMPOSITE:
+        return False, _COMPOSITE[name]
+    # an op with a composite implementation (einsum under inference
+    # mode): count the ops it is made of
+    return (func.namespace == "aten" and func.has_kernel_for_dispatch_key(
+        torch._C.DispatchKey.CompositeImplicitAutograd)), OP_CLASS.get(name)
+
+
 class TrafficCounter(TorchDispatchMode):
     """Counts each aten op run under it by the reference's fused-traffic
     model (see the module docstring): ``flops`` (products, by
@@ -197,54 +230,41 @@ class TrafficCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         # let DTensor run first and count the local ops it issues
-        if any(t is DTensor for t in types):
+        if DTensor in types:
             return NotImplemented
         kwargs = kwargs or {}
-        if (func.namespace == "aten"
-                and func._overloadpacket not in flop_registry
-                and op_name(func) not in _COMPOSITE
-                and func.has_kernel_for_dispatch_key(
-                    torch._C.DispatchKey.CompositeImplicitAutograd)):
-            # an op with a composite implementation (einsum under
-            # inference mode): count the ops it is made of
+        decompose, how = _plan(func)
+        if decompose:
             with self:
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
         out = func(*args, **kwargs)
-        from torch._guards import active_fake_mode
-        if active_fake_mode() is None:   # not DTensor's propagation
-            self._count(func, args, kwargs, out)
+        if how is not _SKIP and how != MOVEMENT and not faking():
+            self._count(func, how, args, kwargs, out)
         return out
 
-    def _count(self, func, args, kwargs, out):
-        if func.namespace in ("_c10d_functional", "c10d",
-                              "_c10d_functional_autograd"):
-            return
+    def _count(self, func, how, args, kwargs, out):
         outs = _tensors(out)
-        if func._overloadpacket in flop_registry:
+        if how is _PRODUCT:
             self.flops += int(flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out))
             self._add(0, sum(map(_nbytes, _tensors((args, kwargs))))
                       + sum(map(_nbytes, outs)), 0)
             return
-        name = op_name(func)
-        if name in _COMPOSITE:
-            self._add(*_COMPOSITE[name](args, outs[0]))
+        if callable(how):
+            self._add(*how(args, outs[0]))
             return
-        cls = OP_CLASS.get(name)
         n_out = sum(t.numel() for t in outs)
-        if cls == MOVEMENT:
-            return
-        if cls == REDUCTION and func._overloadname != "other":
+        if how == REDUCTION and func._overloadname != "other":
             self._add(n_out, _nbytes(args[0]), 0)
-        elif cls == WRITE:
+        elif how == WRITE:
             self._add(0, sum(map(_nbytes, outs)), 0)
-        elif cls == GATHER:
+        elif how == GATHER:
             idx = [t for t in _tensors(args[1:]) if not t.is_floating_point()]
             self._add(3 * sum(t.numel() for t in idx),
                       sum(map(_nbytes, outs)), 0)
-        elif cls == TRANSCENDENTAL and not (name == "pow"
+        elif how == TRANSCENDENTAL and not (op_name(func) == "pow"
                                             and _pow_is_integer(args)):
             self._add(10 * n_out, 0, n_out)
         else:

@@ -115,6 +115,8 @@ def lm_main(args) -> None:
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if device.type == "cpu":
         cfg = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=device)
@@ -158,6 +160,9 @@ def main(argv=None):
                     choices=configs.ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM: cut the config's depth to this many layers "
+                         "(as the checkpoint's train run did)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)

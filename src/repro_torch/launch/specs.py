@@ -10,9 +10,12 @@ are bf16 and M-RoPE positions int32, the reference's dtypes.  A model is
 `repro_torch.models.lm.LM` built on ``meta``, and its caches are
 `lm.cache_init` on ``meta``: one dict a repeat, where the reference
 stacks the repeats (`repro_torch.convert.lm_caches` splits them so).
-Importing this module touches no process group.
+`argument_bytes` reckons a rank's share of them from the sharding specs
+alone.  Importing this module touches no process group.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,3 +77,64 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, tcfg=None) -> dict:
             "batch": batch_specs_for(cfg, shape),
             "caches": abstract_caches(cfg, shape.global_batch,
                                       shape.seq_len)}
+
+
+def mesh_axes(sizes) -> dict:
+    """{axis: size} of a mesh of ``sizes``, named as the port's meshes
+    are: (data, model), or (pod, data, model)."""
+    return dict(zip(("pod", "data", "model")[-len(sizes):], sizes))
+
+
+def local_numel(full, spec: tuple, mesh: dict, coords=None) -> int:
+    """Elements of a rank's shard of a tensor of shape ``full`` laid out
+    by ``spec`` on ``mesh`` ({axis: size}, in mesh order): each mesh
+    axis that an entry names splits that dim as ``torch.chunk`` does
+    (``DTensor``'s ``Shard``), axis after axis in mesh order.
+    ``coords``: the rank's index on each axis (0 on each if omitted)."""
+    sizes = list(full)
+    for axis, n in mesh.items():
+        for d, entry in enumerate(spec):
+            if n > 1 and axis in (entry if isinstance(entry, tuple)
+                                  else (entry,)):
+                c = (coords or {}).get(axis, 0)
+                chunk = -(-sizes[d] // n)
+                sizes[d] = max(0, min(sizes[d], chunk * (c + 1)) - chunk * c)
+    return math.prod(sizes)
+
+
+def argument_bytes(cfg: ModelConfig, shape: ShapeSpec, sizes,
+                   strategy: str = "2d", coords=None) -> int:
+    """The bytes of a rank's share of a cell's arguments on a mesh of
+    ``sizes`` (`mesh_axes`), from the sharding specs alone: parameters
+    by `param_specs`, a train state's two f32 moments by `zero_specs`
+    (no error feedback: ``--compress`` off), the batch by `batch_specs`,
+    the caches by `cache_specs`; each tensor's `local_numel` times its
+    item size."""
+    from repro_torch.distributed import sharding
+    mesh = mesh_axes(tuple(sizes))
+    data = sharding.data_axes_of(mesh)
+
+    def nbytes(t, spec, itemsize=None):
+        return local_numel(tuple(t.shape), spec, mesh, coords) * (
+            itemsize or t.element_size())
+    params = dict(abstract_params(cfg).named_parameters())
+    shapes = {k: tuple(p.shape) for k, p in params.items()}
+    pspecs = sharding.param_specs(shapes, mesh, strategy)
+    total = sum(nbytes(p, pspecs[k]) for k, p in params.items())
+    if shape.kind == "train":
+        zspecs = sharding.zero_specs(shapes, pspecs, mesh)
+        total += 2 * sum(nbytes(p, zspecs[k], 4) for k, p in params.items())
+    batch = batch_specs_for(cfg, shape)
+    bspecs = sharding.batch_specs(batch, mesh, data)
+    total += sum(nbytes(v, bspecs[k]) for k, v in batch.items())
+    if shape.kind != "train":
+        caches = abstract_caches(cfg, shape.global_batch, shape.seq_len)
+
+        def walk(c, sp):
+            if isinstance(c, dict):
+                return sum(walk(c[k], sp[k]) for k in c if k != "length")
+            if isinstance(c, (list, tuple)):
+                return sum(walk(a, b) for a, b in zip(c, sp))
+            return nbytes(c, sp)
+        total += walk(caches, sharding.cache_specs(caches, mesh, data))
+    return total

@@ -40,6 +40,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="smollm-360m", choices=configs.ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -70,6 +72,8 @@ def main(argv=None):
         torch.use_deterministic_algorithms(True)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if device.type == "cpu":       # CPU runs want f32 compute
         cfg = dataclasses.replace(cfg, dtype="float32")
 

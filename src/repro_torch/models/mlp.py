@@ -9,14 +9,14 @@ descending sort: on ties the lower index first), queue positions from a
 cumsum over (token, k) in token-major order, tokens over capacity dropped,
 and the one-hot dispatch and combine contractions, so its sums are the
 reference's.  The reference's vmap over groups is a leading group axis.
-On a mesh the routing runs replicated (`MoE.forward`), and where a
-rank holds only part of a group the tokens are first laid out over the
-data axes alone.
+On a mesh each rank routes the groups it holds (`MoE.forward`), and
+where a rank holds only part of a group the tokens are first laid out
+over the data axes alone.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.nn.functional import silu
 
 from repro_torch.distributed.sharding import pin
@@ -100,23 +100,33 @@ class MoE(torch.nn.Module):
         probs = torch.softmax(logits.float(), dim=-1)
         if isinstance(probs, DTensor):
             # the routing reads whole groups (a top-k, a cumsum over the
-            # group's (token, k) queue): it runs replicated, on the
-            # probabilities all-gathered, (n, g, e) f32, and its
-            # replicated results enter the dispatch again as DTensors
+            # group's (token, k) queue): each rank routes the groups it
+            # holds, on the (n, g, e) probabilities with only the group
+            # dim split (any other split gathered), and its results
+            # enter the dispatch again as DTensors in that layout
             mesh = probs.device_mesh
-            rep = [Replicate()] * mesh.ndim
-            local = probs.redistribute(mesh, rep).to_local(
-                grad_placements=rep)
-            disp, comb, aux = (DTensor.from_local(t, mesh, rep,
-                                                  run_check=False)
-                               for t in _route(local, e, topk, cap, dt))
+            lay = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in probs.placements]
+            local = probs.redistribute(mesh, lay).to_local(
+                grad_placements=lay)
+            disp, comb, first = (DTensor.from_local(t, mesh, lay,
+                                                    run_check=False)
+                                 for t in _route(local, e, topk, cap, dt))
         else:
-            disp, comb, aux = _route(probs, e, topk, cap, dt)
+            disp, comb, first = _route(probs, e, topk, cap, dt)
+        # auxiliary load-balance loss (Switch): e·Σ_e f_e·P_e
+        aux = e * (first.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
         xin = torch.einsum("ngec,ngd->necd", disp.to(dt), xt)   # (n,e,cap,d)
         hg = torch.einsum("necd,edf->necf", xin, self.w_gate.to(dt))
         hu = torch.einsum("necd,edf->necf", xin, self.w_up.to(dt))
         ho = torch.einsum("necf,efd->necd", silu(hg) * hu,
                           self.w_down.to(dt))
+        if isinstance(ho, DTensor):
+            # every expert's output on each rank before the combine, whose
+            # einsum flattens (e, cap): DTensor cannot with e split
+            ho = ho.redistribute(ho.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                for p in ho.placements])
         out = torch.einsum("ngec,necd->ngd", comb.to(dt), ho)
         if split:   # and its gradient back in that layout before the view
             out = out.redistribute(xt.device_mesh, xt.placements)
@@ -143,8 +153,9 @@ def _over_data(x: DTensor) -> list:
 
 
 def _route(probs, e: int, topk: int, cap: int, dt):
-    """The top-k routing of (n, g, e) probabilities: (dispatch, combine
-    (n, g, e, cap), the auxiliary load-balance loss)."""
+    """The top-k routing of (n, g, e) probabilities, each group alone:
+    (dispatch, combine (n, g, e, cap), the one-hot (n, g, e) of each
+    token's first expert)."""
     top_p, top_e = top_k_stable(probs, topk)                    # (n,g,topk)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     pg = top_p.to(dt)
@@ -161,8 +172,4 @@ def _route(probs, e: int, topk: int, cap: int, dt):
     disp = torch.einsum("ngke,ngkc->ngec", onehot * keep[..., None], caphot)
     comb = torch.einsum("ngke,ngkc->ngec",
                         onehot * (keep * pg)[..., None], caphot)
-    # auxiliary load-balance loss (Switch): e·Σ_e f_e·P_e
-    me = torch.nn.functional.one_hot(top_e[..., 0], e).float().mean(
-        dim=(0, 1))
-    pe = probs.mean(dim=(0, 1))
-    return disp, comb, e * (me * pe).sum()
+    return disp, comb, torch.nn.functional.one_hot(top_e[..., 0], e).float()

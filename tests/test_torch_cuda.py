@@ -1861,60 +1861,14 @@ def test_sharded_step_on_a_one_by_one_mesh(dev, no_tf32, one_rank,
 # the production dry run on the card (chip_smoke.py's Run S(a))
 # ---------------------------------------------------------------------------
 
-def _dry_reckoning(rec):
-    """A dry-run record's argument bytes from the specs alone: each
-    tensor's size over the mesh axes that shard it, times its item size
-    (moments f32)."""
-    from repro_torch import configs
-    from repro_torch.configs.shapes import SHAPES
-    from repro_torch.distributed import sharding
-    from repro_torch.launch import specs
-    cfg, shape = configs.get(rec["arch"]), SHAPES[rec["shape"]]
-    sizes = [int(n) for n in rec["mesh"].split("x")]
-    mesh = dict(zip(("pod", "data", "model")[-len(sizes):], sizes))
-
-    def local(full, spec):
-        n = 1
-        for d, size in enumerate(full):
-            entry = spec[d] if d < len(spec) else None
-            axes = () if entry is None else (
-                entry if isinstance(entry, tuple) else (entry,))
-            n *= size // math.prod(mesh[a] for a in axes)
-        return n
-    params = dict(specs.abstract_params(cfg).named_parameters())
-    shp = {k: tuple(p.shape) for k, p in params.items()}
-    ps = sharding.param_specs(shp, mesh, rec["strategy"])
-    total = sum(local(s, ps[k]) * params[k].element_size()
-                for k, s in shp.items())
-    if shape.kind == "train":
-        zs = sharding.zero_specs(shp, ps, mesh)
-        total += 2 * sum(local(s, zs[k]) * 4 for k, s in shp.items())
-    batch = specs.batch_specs_for(cfg, shape)
-    bs = sharding.batch_specs(batch, mesh, sharding.data_axes_of(mesh))
-    total += sum(local(tuple(v.shape), bs[k]) * v.element_size()
-                 for k, v in batch.items())
-    if shape.kind != "train":
-        caches = specs.abstract_caches(cfg, shape.global_batch,
-                                       shape.seq_len)
-        cs = sharding.cache_specs(caches, mesh, sharding.data_axes_of(mesh))
-
-        def walk(c, s):
-            if isinstance(c, dict):
-                return sum(walk(c[k], s[k]) for k in c if k != "length")
-            if isinstance(c, (list, tuple)):
-                return sum(walk(a, b) for a, b in zip(c, s))
-            return local(tuple(c.shape), s) * c.element_size()
-        total += walk(caches, cs)
-    return total
-
-
 @pytest.mark.parametrize("arch,shape,mesh", [
     ("smollm-360m", "all", "single"),
     ("deepseek-v2-lite-16b", "train_4k", "multi")])
 def test_dry_run_on_the_card(dev, tmp_path, arch, shape, mesh):
     """Run S(a)'s cells through the dry run's CLI, in a process of their
-    own (its fake group shares no process with another group): no error,
-    smollm's long_500k skipped, each argument bytes the specs' reckoning,
+    own (its fake group shares no process with another group): no error
+    and no share out of memory, smollm's long_500k skipped, each argument
+    bytes the specs' reckoning (`specs.argument_bytes`),
     each peak at least its arguments, the collective kinds of "2d"."""
     import json
     import os
@@ -1926,16 +1880,22 @@ def test_dry_run_on_the_card(dev, tmp_path, arch, shape, mesh):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
          "cuda", "--arch", arch, "--shape", shape, "--mesh", mesh, "--out",
-         str(out)], capture_output=True, text=True, timeout=600,
+         str(out), "--no-flops"], capture_output=True, text=True, timeout=600,
         env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert proc.returncode == 0, proc.stderr[-3000:]
     recs = json.loads(out.read_text())
     assert not any("error" in r for r in recs)
     ran = [r for r in recs if "skipped" not in r]
     assert len(ran) == (3 if shape == "all" else 1)
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import specs
     for r in ran:
+        assert "oom" not in r, r["oom"]
         mem = r["memory_per_device"]
-        assert mem["argument_bytes"] == _dry_reckoning(r)
+        assert mem["argument_bytes"] == specs.argument_bytes(
+            configs.get(r["arch"]), SHAPES[r["shape"]],
+            [int(n) for n in r["mesh"].split("x")], r["strategy"])
         assert mem["total_bytes"] >= mem["argument_bytes"]
         kinds = set(r["collectives"]["counts"])
         assert kinds and kinds <= {"all-reduce", "all-gather",

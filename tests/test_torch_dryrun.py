@@ -10,8 +10,8 @@
   elementwise FLOPs within `BYTES_BAR` and `ELEMENTWISE_BAR` (measured:
   see their comments).
 - The dry run on a fake (2, 2) group, in this process: every key of the
-  record, ``argument_bytes`` against a reckoning made here from the
-  sharding specs and ``DTensor``'s local shapes, every tensor held
+  record, ``argument_bytes`` against the specs' reckoning
+  (`specs.argument_bytes`) on ranks 0–3, every tensor held
   replication times over over ranks 0–3, the peak above the arguments;
   its collectives against those of the same step on a real 4-rank gloo
   group (`tests/_torch_dist.py`, one launch).  The production meshes and
@@ -28,8 +28,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 
 from _torch_dist import Ranks
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -40,7 +38,6 @@ from repro.launch import specs as ref_specs
 from repro.models import lm as ref_lm
 from repro_torch import configs, convert
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
-from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun, flops, specs
 from repro_torch.launch.mesh import local_mesh
 from repro_torch.models import lm
@@ -292,45 +289,6 @@ def _on_fake_group(rank, fn):
         dryrun._forget_meshes()
 
 
-def _reckoning(arch, kind, mesh) -> int:
-    """A cell's argument bytes on ``mesh`` from the specs alone: each
-    tensor's local shape (``compute_local_shape_and_global_offset`` of
-    its placements) times its item size; a train state's moments f32 by
-    `sharding.zero_specs`, caches bf16 by `sharding.cache_specs`."""
-    cfg, shape = configs.get_smoke(arch), SMOKE[kind]
-    mshape = sharding.mesh_shape(mesh)
-    shapes = flops.meta_shapes(cfg)
-    pspecs = sharding.param_specs(shapes, mshape)
-
-    def nbytes(full, spec, itemsize):
-        local, _ = compute_local_shape_and_global_offset(
-            full, mesh, sharding.placements(spec, mesh))
-        return int(np.prod(local)) * itemsize
-    total = sum(nbytes(s, pspecs[k], 4) for k, s in shapes.items())
-    if kind == "train":
-        zspecs = sharding.zero_specs(shapes, pspecs, mshape)
-        total += 2 * sum(nbytes(s, zspecs[k], 4) for k, s in shapes.items())
-    batch = specs.batch_specs_for(cfg, shape)
-    bspecs = sharding.batch_specs(batch, mshape,
-                                  sharding.data_axes_of(mshape))
-    total += sum(nbytes(tuple(v.shape), bspecs[k], v.element_size())
-                 for k, v in batch.items())
-    if kind != "train":
-        caches = specs.abstract_caches(cfg, shape.global_batch,
-                                       shape.seq_len)
-        cspecs = sharding.cache_specs(caches, mshape,
-                                      sharding.data_axes_of(mshape))
-
-        def walk(c, s):
-            if isinstance(c, dict):
-                return sum(walk(c[k], s[k]) for k in c if k != "length")
-            if isinstance(c, (list, tuple)):
-                return sum(walk(a, b) for a, b in zip(c, s))
-            return nbytes(tuple(c.shape), s, 2)
-        total += walk(caches, cspecs)
-    return total
-
-
 @pytest.mark.parametrize("name", list(CELLS))
 def test_record_has_every_key(records, name):
     rec = records[name]
@@ -350,8 +308,45 @@ def test_record_has_every_key(records, name):
 @pytest.mark.parametrize("name", list(CELLS))
 def test_argument_bytes_equal_the_specs_reckoning(records, name):
     arch, kind = CELLS[name]
-    want = _on_fake_group(0, lambda mesh: _reckoning(arch, kind, mesh))
+    want = specs.argument_bytes(configs.get_smoke(arch), SMOKE[kind], (2, 2))
     assert records[name]["memory_per_device"]["argument_bytes"] == want
+
+
+@pytest.mark.parametrize("name", ["olmo-1b/train", "smollm-360m/decode"])
+def test_argument_bytes_of_every_rank_equal_the_specs_reckoning(name):
+    """`specs.argument_bytes` at each rank's mesh coordinates against the
+    bytes of the shards `dryrun.build_cell` makes on ranks 0–3."""
+    arch, kind = CELLS[name]
+    cfg, shape = configs.get_smoke(arch), SMOKE[kind]
+    for rank in range(4):
+        held = _on_fake_group(rank, lambda mesh: dryrun.local_bytes(
+            dryrun.build_cell(arch, shape.name, mesh, cfg=cfg,
+                              shape=shape)[1]))
+        want = specs.argument_bytes(cfg, shape, (2, 2), coords={
+            "data": rank // 2, "model": rank % 2})
+        assert held == want, rank
+
+
+def test_an_out_of_memory_share_keeps_no_counts(monkeypatch):
+    """A share that runs out of memory is recorded so: ``oom`` and a
+    lower-bound peak, no fit, and no count, roofline or dominant term
+    (they would be of part of a step)."""
+    def step_of(cfg, shape, tcfg):
+        def step_fn(*args):
+            torch.ones(3) + 1
+            raise torch.cuda.OutOfMemoryError("Tried to allocate 30 GiB")
+        return step_fn
+    monkeypatch.setattr(dryrun, "step_of", step_of)
+    rec = dryrun.run_cell("olmo-1b", "smoke_train", False, count_flops=False,
+                          verbose=False, device="cpu", mesh_shape=(2, 2),
+                          cfg=configs.get_smoke("olmo-1b"),
+                          shape=SMOKE["train"])
+    assert "Tried to allocate 30 GiB" in rec["oom"]
+    assert rec["fits_hbm"] is False
+    assert rec["memory_per_device"]["peak_is_lower_bound"] is True
+    for k in ("device_cost", "collectives", "roofline", "dominant",
+              "mfu_bound"):
+        assert rec[k] is None, k
 
 
 @pytest.mark.parametrize("name", list(CELLS))
