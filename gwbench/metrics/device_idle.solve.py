@@ -1,0 +1,9 @@
+"""The device's idle share over the traced whole solves: 1 − (the union of
+the device operations' intervals / the stretch's wall), in %."""
+
+
+def read(ctx):
+    if ctx.kind != "closed_solve" or ctx.trace is None \
+            or ctx.trace.busy_s <= 0.0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
